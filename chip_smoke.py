@@ -8,22 +8,27 @@ prints no result line):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: nvcc compiles every kernel from the sources in the checkout;
   3. each kernel against its plain torch version on the card, at the
-     shapes the serving path gives it, with its time and its bound;
+     shapes the serving path gives it, in float32 and bfloat16 output, with
+     its profiled device time, its bound and the wrapper's host cost;
   4. the serving path at full width: the published extra_capacity
      single-frame Q-net (configs/experiments/real_data/config.yml, 224 px,
      5 classes x 3 actions) with seeded random weights, loaded through
      load_eval_model from a .torch checkpoint, answers 12/24/48/96-view
      requests of 224x224 renders and 256x342 frames through the multiclass
      scorer's dispatch/gather with 2 requests in flight. Every request must
-     go through the kernel, every answer must match a float32 card forward
-     of its own views within 0.05, and the bf16 scores of the 12-view
-     stops must track the port's own float32 CPU forward;
+     go through the kernel once with bf16 output, every answer must match a
+     float32 card forward of its own views within 0.05 and the same model
+     under autocast fed by the kernel's float32 output within 1e-3, and the
+     bf16 scores of the 12-view stops must track the port's own float32
+     CPU forward;
   5. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,14 +52,21 @@ IMAGE_SIZE = 224
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 KERNEL_ATOL = 1e-5
+# bf16 output against the float32 plain version: half a bf16 ulp, relative
+KERNEL_BF16_RTOL = 2.0 ** -8
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 # bf16 card forward against the float32 CPU forward (tests/test_models.py
 # test_qnet_bf16_matches_fp32_coarsely)
-BF16_ATOL, BF16_RTOL = 0.15, 0.1
+SCORE_ATOL, SCORE_RTOL = 0.15, 0.1
 # every served score against a float32 card forward of the same views and
 # weights through the plain resize twin: about 3x the bf16 gap measured
 # at a 12-view stop (0.0142), and below the score gap between the rows
 # of a request, so scores of the wrong rows or request fail it
 SERVE_ATOL = 0.05
+# served scores (kernel writes bf16) against the same model under autocast
+# fed by the kernel's float32 output: autocast's cast rounds to nearest
+# even as the kernel does, so the two should agree exactly
+ROUTE_ATOL = 1e-3
 # (input shape, output side): the dataset's frames and the renders at the
 # largest serving bucket (8 episodes x 12 views), and a 96 px stop
 KERNEL_SHAPES = [((96, 256, 342, 3), 224), ((96, 224, 224, 3), 224),
@@ -149,56 +161,123 @@ def build() -> None:
         if "ptxas" in line:
             log(f"  {line.strip()}")
     log(f"[build] {_build.LIB.name} in {seconds:.2f} s")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    for body in sass.split("Function : ")[1:]:
+        name = body.split()[0]
+        short = re.search(r"(resize_normalize_(?:identity|banded)_kernel)I(f|13__nv_bfloat16)",
+                          name)
+        if short:
+            name = f"{short[1]}<{'float' if short[2] == 'f' else '__nv_bfloat16'}>"
+        n = len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", body, re.MULTILINE))
+        log(f"  SASS {name}: {n} instructions, {body.count('CALL')} subroutine calls")
 
 
-def band_flops(shape, out: int) -> int:
-    """Floating-point operations of the banded resample + normalize."""
+def kernel_flops(shape, out: int) -> int:
+    """Floating-point operations of the kernel's path: the normalize (2 a
+    value) at identity size; else the vertical pass (2*K_h per input
+    column of each output row), the horizontal pass (2*K_w a value) and
+    the normalize."""
     b, h, w, _ = shape
+    if rn.kernel_plan(h, w, out).identity:
+        return b * out * out * 3 * 2
     k_h = rn.band_table(rn.resize_matrix(h, out))[1].shape[1]
     k_w = rn.band_table(rn.resize_matrix(w, out))[1].shape[1]
-    return b * out * out * 3 * (2 * k_h * k_w + 2 * k_h + 2)
+    return b * (out * w * 3 * 2 * k_h + out * out * 3 * (2 * k_w + 2))
+
+
+def kernel_device_ms(fn, calls: int = 20):
+    """Profiled device time of the resize_normalize kernel per call of fn,
+    or None where the profiler missed some of its launches twice (its
+    first profiling run can drop events)."""
+    for _ in range(2):
+        prof = device_profile(fn, calls=calls)
+        seen = [(n, us) for name, (n, us) in prof["by_name"].items()
+                if "resize_normalize" in name]
+        if sum(n for n, _ in seen) == calls:
+            return sum(us for _, us in seen) / calls / 1e3
+    return None
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of fn, without a synchronize: what the wrapper
+    costs the host, with the card's queue far from full."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def kernel_vs_plain() -> list[dict]:
+    """Every KERNEL_SHAPES entry in both output types: identity paths
+    bit-equal to the plain version, banded ones within KERNEL_ATOL (plus
+    KERNEL_BF16_RTOL relative for bf16). The kernel's time is its profiled
+    device time, back to back and with the 50 MB L2 flushed before each
+    launch."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    flush = torch.empty(2 ** 27, dtype=torch.uint8, device="cuda")
     rows = []
     for shape, out in KERNEL_SHAPES:
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
-        got = rn.resize_normalize(x, out)
+        path = "identity" if rn.kernel_plan(shape[1], shape[2], out).identity else "banded"
         want = rn.resize_normalize_reference(x, out)
-        torch.cuda.synchronize()
-        if not got.is_contiguous(memory_format=torch.channels_last):
-            raise AssertionError("kernel output is not NCHW channels_last")
-        err = (got - want).abs().max().item()
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"resize_normalize {shape}->{out}: max abs err "
-                                 f"{err} > {KERNEL_ATOL}")
-        ms = cuda_ms(lambda: rn.resize_normalize(x, out))
-        plain_ms = cuda_ms(lambda: rn.resize_normalize_reference(x, out))
         xf = x.permute(0, 3, 1, 2).float()
         interp_ms = cuda_ms(lambda: F.interpolate(
             xf, size=(out, out), mode="bilinear", antialias=True))
-        prof = device_profile(lambda: rn.resize_normalize(x, out), calls=20)
-        kernel_us = [us for name, (_, us) in prof["by_name"].items()
-                     if "resize_normalize" in name]
-        device_ms = kernel_us[0] / 20 / 1e3 if kernel_us else None
-        n_bytes = x.numel() + got.numel() * 4
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = band_flops(shape, out) / FP32_FLOPS * 1e3
-        row = {"shape": list(shape), "out": out, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": n_bytes, "gb_per_s": n_bytes / ms / 1e6,
-               "approx_interpolate_ms": interp_ms, "profiled_device_ms": device_ms}
-        log(f"[kernel] resize_normalize {tuple(shape)}->{out}: err {err:.3g} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}, {row['gb_per_s']:.1f} GB/s); approximate "
-            f"yardstick only, F.interpolate(bilinear, antialias) on float NCHW "
-            f"(other borders, no normalize): {interp_ms:.4f} ms; profiled kernel "
-            f"device time {device_ms if device_ms is None else f'{device_ms:.4f}'} ms")
-        rows.append(row)
+        for dtype in OUT_DTYPES:
+            dname = str(dtype)[6:]
+            got = rn.resize_normalize(x, out, dtype)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"kernel output is not {dtype} NCHW channels_last")
+            err = (got.float() - want).abs()
+            if path == "identity":
+                ok, tol = torch.equal(got, want.to(dtype)), "bit-equal"
+            else:
+                bound = KERNEL_ATOL + (KERNEL_BF16_RTOL * want.abs() if dtype == torch.bfloat16 else 0)
+                ok = bool((err <= bound).all())
+                tol = f"<= {KERNEL_ATOL}" + (" + 2^-8 |ref|" if dtype == torch.bfloat16 else "")
+            max_err = err.max().item()
+            if not ok:
+                raise AssertionError(f"resize_normalize {path} {shape}->{out} {dname}: "
+                                     f"max abs err {max_err}, not {tol}")
+            call = lambda: rn.resize_normalize(x, out, dtype)  # noqa: E731
+            event_ms = cuda_ms(call)
+            plain_ms = cuda_ms(lambda: rn.resize_normalize_reference(x, out).to(dtype))
+            device_ms = kernel_device_ms(call)
+            cold_ms = kernel_device_ms(lambda: (flush.zero_(), call()))
+            wrapper_us = host_us(call)
+            ms = device_ms if device_ms is not None else event_ms
+            n_bytes = x.numel() + got.numel() * got.element_size()
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = kernel_flops(shape, out) / FP32_FLOPS * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            row = {"path": path, "shape": list(shape), "out": out, "dtype": dname,
+                   "max_abs_err": max_err, "tolerance": tol, "ms": ms,
+                   "ms_source": "profiler" if device_ms is not None else "events",
+                   "event_ms": event_ms, "cold_l2_device_ms": cold_ms,
+                   "host_us_per_call": wrapper_us, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "share_of_bound": bound_ms / ms, "bytes": n_bytes,
+                   "gb_per_s": n_bytes / ms / 1e6, "library_ms": None,
+                   "approx_interpolate_ms": interp_ms}
+            log(f"[kernel] resize_normalize_{path} {tuple(shape)}->{out} {dname}: "
+                f"err {max_err:.3g} ({tol}); device {ms:.4f} ms ({row['ms_source']}; "
+                f"L2 flushed before each: {cold_ms if cold_ms is None else f'{cold_ms:.4f}'} "
+                f"ms), events {event_ms:.4f} ms, wrapper host {wrapper_us:.1f} us/call; "
+                f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({row['bound_by']}), "
+                f"{row['share_of_bound']:.1%} of it, {row['gb_per_s']:.1f} GB/s; "
+                f"approximate yardstick only, F.interpolate(bilinear, antialias) on "
+                f"float NCHW (other borders, no normalize, f32): {interp_ms:.4f} ms")
+            rows.append(row)
+    del flush
     return rows
 
 
@@ -222,6 +301,19 @@ def fp32_card_scores(model, views: np.ndarray, cls: np.ndarray) -> np.ndarray:
     xn = rn.resize_normalize_reference(x.reshape((b * f,) + x.shape[2:]), IMAGE_SIZE)
     xn = xn.permute(0, 2, 3, 1).reshape(b, f, IMAGE_SIZE, IMAGE_SIZE, 3)
     with torch.no_grad():
+        q = model(xn)
+    rows = torch.arange(b, device=q.device)
+    return q[rows, torch.from_numpy(cls).to(q.device)].amax(dim=-1).cpu().numpy()
+
+
+def f32_route_scores(model, views: np.ndarray, cls: np.ndarray) -> np.ndarray:
+    """The scorer's forward with the kernel's float32 output in place of
+    its bf16 output: autocast then casts the input to bf16 itself."""
+    x = torch.from_numpy(views).cuda()
+    b, f = x.shape[:2]
+    xn = rn.resize_normalize(x.reshape((b * f,) + x.shape[2:]), IMAGE_SIZE, torch.float32)
+    xn = xn.permute(0, 2, 3, 1).reshape(b, f, IMAGE_SIZE, IMAGE_SIZE, 3)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         q = model(xn)
     rows = torch.arange(b, device=q.device)
     return q[rows, torch.from_numpy(cls).to(q.device)].amax(dim=-1).cpu().numpy()
@@ -253,13 +345,13 @@ def serving_path() -> dict:
 
     # the main path: counts from 0, 2 requests in flight
     torch.cuda.reset_peak_memory_stats()
-    rn.LAUNCHES = 0
+    rn.LAUNCHES.clear()
     t0 = time.perf_counter()
     inflight, answers, steps = [], [], []
     for views, cls in requests:
-        before = rn.LAUNCHES
+        before = rn.LAUNCHES.copy()
         inflight.append((views, cls, scorer.dispatch(views, cls)))
-        steps.append(rn.LAUNCHES - before)
+        steps.append(dict(rn.LAUNCHES - before))
         if len(inflight) == 2:
             v, c, h = inflight.pop(0)
             answers.append((v, c, scorer.gather(h)))
@@ -267,12 +359,16 @@ def serving_path() -> dict:
         v, c, h = inflight.pop(0)
         answers.append((v, c, scorer.gather(h)))
     wall = time.perf_counter() - t0
-    launches = rn.LAUNCHES
+    launches = {path: rn.LAUNCHES[path, "bfloat16"] for path in ("identity", "banded")}
     log(f"[serve] {len(requests)} requests ({sum(len(v) for v, _ in requests)} views) "
-        f"cold in {wall:.3f} s; kernel launches {launches}, per call {steps}")
-    if launches != len(requests) or steps != [1] * len(requests):
-        raise AssertionError(f"resize_normalize launched {launches} times for "
-                             f"{len(requests)} scorer calls ({steps})")
+        f"cold in {wall:.3f} s; kernel launches {dict(rn.LAUNCHES)}")
+    for (views, _), step in zip(requests, steps):
+        path = "identity" if views.shape[2:4] == (IMAGE_SIZE, IMAGE_SIZE) else "banded"
+        if step != {(path, "bfloat16"): 1}:
+            raise AssertionError(f"a {views.shape} request launched {step}, not one "
+                                 f"{path} kernel with bf16 output")
+    if sum(rn.LAUNCHES.values()) != len(requests):
+        raise AssertionError(f"{dict(rn.LAUNCHES)} launches for {len(requests)} calls")
     for views, _, scores in answers:
         if scores.shape != (len(views),) or not np.all(np.isfinite(scores)):
             raise AssertionError(f"bad scores {scores.shape} for {len(views)} views")
@@ -295,6 +391,18 @@ def serving_path() -> dict:
                                  f"{SERVE_ATOL} check cannot tell them apart")
         serve_diff, row_gap = max(serve_diff, diff), min(row_gap, gap)
 
+    # the bf16 route against the float32 route under autocast: the kernel's
+    # bf16 output must be what autocast's cast of its float32 output gives
+    route_diff = 0.0
+    for views, cls, scores in answers:
+        diff = float(np.abs(scores - f32_route_scores(model, views, cls)).max())
+        log(f"[serve] {len(views)} views {views.shape[2]}x{views.shape[3]}: bf16 route "
+            f"vs float32 route under autocast max abs diff {diff:.4g}")
+        if not diff <= ROUTE_ATOL:
+            raise AssertionError(f"bf16 kernel output changes the scores by {diff} > "
+                                 f"{ROUTE_ATOL} against autocast's own cast")
+        route_diff = max(route_diff, diff)
+
     # bf16 card scores against the port's float32 CPU forward, one 12-view
     # stop per render size
     cpu_scorer = make_multiclass_scorer(cpu_model, image_size=IMAGE_SIZE, device="cpu")
@@ -303,7 +411,7 @@ def serving_path() -> dict:
         if len(views) != 12:
             continue
         want = cpu_scorer(views, cls)
-        np.testing.assert_allclose(scores, want, atol=BF16_ATOL, rtol=BF16_RTOL)
+        np.testing.assert_allclose(scores, want, atol=SCORE_ATOL, rtol=SCORE_RTOL)
         worst = max(worst, float(np.abs(scores - want).max()))
         log(f"[serve] 12-view stop {views.shape[2]}x{views.shape[3]}: card bf16 "
             f"vs cpu fp32 max abs diff {np.abs(scores - want).max():.4g} "
@@ -333,11 +441,24 @@ def serving_path() -> dict:
             runs.append(96 * 10 / (time.perf_counter() - t0))
         rates[f"{views.shape[2]}x{views.shape[3]}"] = {
             "median": float(np.median(runs)), "min": min(runs), "max": max(runs)}
+    # autocast casts each convolution and linear weight and bias to bf16 on
+    # every call; the input is no longer cast, since the kernel writes bf16
+    weight_casts = sum(p is not None for m in model.modules()
+                       if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+                       for p in (m.weight, m.bias))
     profiles = {}
     for views, cls in (r for r in requests if len(r[0]) in (12, 96)):
         label = f"scorer call, {len(views)} views {views.shape[2]}x{views.shape[3]}"
         profiles[label] = device_profile(lambda: scorer(views, cls), calls=10)
         log_profile(label, profiles[label])
+        copies = sum(n for name, (n, _) in profiles[label]["by_name"].items()
+                     if "bfloat16_copy" in name) / 10
+        log(f"[profile] {label}: {copies:g} bfloat16_copy launches per call, "
+            f"{weight_casts} of them weight and bias casts")
+        if len(views) == 96 and copies > weight_casts:
+            raise AssertionError(f"{copies:g} bfloat16_copy launches per call, more than "
+                                 f"the {weight_casts} weight and bias casts: the "
+                                 f"input is cast again")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms_stop = float(np.median(per_stop))
     p80_stop = float(np.percentile(per_stop, 80))
@@ -350,6 +471,7 @@ def serving_path() -> dict:
             "ms_per_12_view_stop_p80": p80_stop,
             "views_per_s_b96": rates, "bf16_max_abs_diff": worst,
             "served_vs_fp32_card_max_abs_diff": serve_diff,
+            "bf16_route_vs_f32_route_max_abs_diff": route_diff,
             "min_median_row_gap": row_gap,
             "device_busy_share": {k: v["busy_share"] for k, v in profiles.items()}}
 
@@ -359,21 +481,26 @@ def main() -> None:
     build()
     rows = kernel_vs_plain()
     serve = serving_path()
-    main_row = rows[0]
-    kernels = [{
-        "name": "resize_normalize",
-        "route": "cuda",
-        "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
-        "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
-        "launches": serve["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "shapes": rows,
-    }]
+    kernels = []
+    for path in ("identity", "banded"):
+        mine = [r for r in rows if r["path"] == path]
+        # the main path's call: the largest batch, in the bf16 it serves
+        main_row = max((r for r in mine if r["dtype"] == "bfloat16"),
+                       key=lambda r: r["shape"][0])
+        kernels.append({
+            "name": f"resize_normalize_{path}",
+            "route": "cuda",
+            "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
+            "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
+            "launches": serve["launches"][path],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "shapes": mine,
+        })
     log(json.dumps({"serve": serve}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

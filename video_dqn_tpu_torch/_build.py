@@ -25,11 +25,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None
 _lock = threading.Lock()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each kernel entry takes one pointer to its argument struct
+# (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`).
 _SIGNATURES = {
-    "vdqn_resize_normalize_u8": [_P, _P, _P, _P, _I, _P, _P, _I,
-                                 _I, _I, _I, _I, _I,
-                                 _F, _F, _F, _F, _F, _F, _P],
+    "vdqn_resize_normalize_identity": [ctypes.c_void_p],
+    "vdqn_resize_normalize_banded": [ctypes.c_void_p],
 }
 
 

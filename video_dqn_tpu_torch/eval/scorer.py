@@ -5,8 +5,9 @@ video_dqn_tpu/eval/batched_runner.py `make_multiclass_scorer`).
 Every call runs the fused resize+normalize kernel on the views (an exact
 identity resample when they are already at model size), then the Q-net,
 and returns the max over actions of the Q of each view's goal class. On
-the card the forward runs under bf16 autocast with float32 parameters and
-the scores come back as float32; on the CPU (tests) it runs in float32.
+the card the kernel writes bf16 and the forward runs under bf16 autocast
+with float32 parameters; the scores come back as float32. On the CPU
+(tests) everything runs in float32.
 """
 
 from __future__ import annotations
@@ -24,11 +25,14 @@ def _scores(model, images: torch.Tensor, cls: torch.Tensor,
             image_size: int) -> torch.Tensor:
     """images: uint8 (B, F, H, W, 3) on the model's device; cls: (B,)."""
     b, f = images.shape[0], images.shape[1]
-    x = resize_normalize(images.reshape((b * f,) + images.shape[2:]), image_size)
+    on_card = images.device.type == "cuda"
+    # on the card the kernel writes bf16, which the first convolution reads
+    # as it is, in place of autocast's cast of a float32 input
+    x = resize_normalize(images.reshape((b * f,) + images.shape[2:]), image_size,
+                         torch.bfloat16 if on_card else torch.float32)
     # (B*F, 3, S, S) channels_last is (B*F, S, S, 3) contiguous: both views
     x = x.permute(0, 2, 3, 1).reshape(b, f, image_size, image_size, 3)
-    with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                        enabled=images.device.type == "cuda"):
+    with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=on_card):
         q = model(x)
     return q[torch.arange(b, device=q.device), cls].amax(dim=-1)
 
