@@ -21,12 +21,29 @@ prints no result line):
      under autocast fed by the kernel's float32 output within 1e-3, and the
      bf16 scores of the 12-view stops must track the port's own float32
      CPU forward;
-  5. a JSON line of every ported kernel, then the result line.
+  5. the training path at full width: the same published configuration
+     (B = 256, bf16) trains through run_train on 4,096 seeded 224x224
+     frames of a synthetic video (8,192 rows) in both data modes, the
+     device-resident table and the host-fed pinned prefetch, with
+     TARGET_UPDATE_INTERVAL, CHECKPOINT_INTERVAL and NUM_STEPS cut to 8, 10
+     and 30. Every step must launch the identity kernel exactly twice with
+     bf16 output and nothing else, every logged loss must be finite, the
+     target must equal the online net from before the update bit for bit
+     after each sync, sample10/20/30.ckpt must exist, a resume from 20
+     must draw the same rows and end within 1e-3 of the first run's EMA
+     loss, bf16 steps must track float32 card steps, and float32 card
+     steps at 96 px must match the port's CPU steps within 1e-4. Prints
+     ms/step and frames/s per mode, a profiled step with its phase split,
+     and peak memory;
+  6. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -41,10 +58,19 @@ import torch
 import torch.nn.functional as F
 
 from video_dqn_tpu_torch import _build
+from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
+from video_dqn_tpu_torch.core.config import load_yaml
+from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
+from video_dqn_tpu_torch.core.experiment import ExperimentConfig
+from video_dqn_tpu_torch.core.metrics import read_metrics
+from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
+from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
+from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.ops import resize_normalize as rn
+from video_dqn_tpu_torch.train import dqn
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -69,14 +95,24 @@ SERVE_ATOL = 0.05
 ROUTE_ATOL = 1e-3
 # (input shape, output side): the dataset's frames and the renders at the
 # largest serving bucket (8 episodes x 12 views), and a 96 px stop
+# and the train step's before and after frames at B = 256
 KERNEL_SHAPES = [((96, 256, 342, 3), 224), ((96, 224, 224, 3), 224),
-                 ((12, 96, 96, 3), 96)]
+                 ((12, 96, 96, 3), 96), ((256, 224, 224, 3), 224)]
 REQUEST_VIEWS = (12, 24, 48, 96)
 RENDERS = ((224, 224), (256, 342))
-# published config plus the JAX package's defaults (core/defaults.py)
-MODEL_CONFIG = SimpleNamespace(ARCHITECTURE="extra_capacity", PANORAMA=False,
-                               PREVIOUS_IMAGES=False, VALUE_LEARNING=False,
-                               ONE_ACTION=False)
+PUBLISHED_CONFIG = Path(__file__).resolve().parent / "configs/experiments/real_data/config.yml"
+# the training phase: cuts of the published config to fit the time limit
+TRAIN_CUTS = {"TARGET_UPDATE_INTERVAL": 8, "CHECKPOINT_INTERVAL": 10, "NUM_STEPS": 30}
+TRAIN_FRAMES, TRAIN_ROWS, TRAIN_LOG_EVERY = 4096, 8192, 10
+RESUME_FROM = 20
+EMA_RTOL = 1e-3            # resumed run's final EMA loss against the first run's
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.05, 1e-3   # bf16 steps against float32 steps
+CPU_ATOL = 1e-4            # float32 card steps against float32 CPU steps, 96 px
+# An element whose gradient lies below the float32 noise of its sum can
+# take Adam's ~lr step the other way on the other device: 222 and 280 of
+# the 23.3M params and target params did, up to 1.48e-4 apart. A few such
+# are allowed; a skipped or wrong update moves millions.
+CPU_BEYOND_MAX, CPU_CAP_LR = 1000, 2
 
 
 def log(msg: str) -> None:
@@ -281,11 +317,18 @@ def kernel_vs_plain() -> list[dict]:
     return rows
 
 
-def seeded_checkpoint(path: Path) -> dict:
+def published_config():
+    """The published config.yml over the port's defaults (core/defaults.py)."""
+    config = get_cfg_defaults()
+    config.merge_from_file(str(PUBLISHED_CONFIG))
+    return config
+
+
+def seeded_checkpoint(path: Path, model_config) -> dict:
     """Seeded port init saved in the reference's .torch format, with the
     unused torchvision classifier the reference trunk carries."""
     g = torch.Generator().manual_seed(SEED)
-    model = init_qnet(build_qnet(MODEL_CONFIG, IMAGE_SIZE, device="cpu"), g)
+    model = init_qnet(build_qnet(model_config, IMAGE_SIZE, device="cpu"), g)
     sd = dict(model.state_dict())
     sd["resnet.fc.weight"] = torch.randn((1000, 512), generator=g) / 512 ** 0.5
     sd["resnet.fc.bias"] = torch.zeros(1000)
@@ -323,12 +366,13 @@ def serving_path() -> dict:
     _build.BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         ckpt = Path(tmp) / "qnet.torch"
-        seeded_checkpoint(ckpt)
+        model_config = published_config()
+        seeded_checkpoint(ckpt, model_config)
         t0 = time.perf_counter()
         model = load_eval_model(SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt)),
-                                MODEL_CONFIG, image_size=IMAGE_SIZE)
+                                model_config, image_size=IMAGE_SIZE)
         cpu_model = load_eval_model(
-            SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt)), MODEL_CONFIG,
+            SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt)), model_config,
             image_size=IMAGE_SIZE, device="cpu")
     log(f"[serve] loaded {sum(p.numel() for p in model.parameters())} params "
         f"in {time.perf_counter() - t0:.2f} s on {next(model.parameters()).device}")
@@ -476,11 +520,326 @@ def serving_path() -> dict:
             "device_busy_share": {k: v["busy_share"] for k, v in profiles.items()}}
 
 
+def _yaml(tree: dict, indent: str = "") -> list:
+    lines = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            lines += [f"{indent}{k}:"] + _yaml(v, indent + "  ")
+        else:
+            lines.append(f"{indent}{k}: " + (f"'{v}'" if isinstance(v, str) else repr(v)))
+    return lines
+
+
+def experiment(folder: Path, **over) -> ExperimentConfig:
+    """A new experiment folder whose config.yml is the published config
+    with `over` merged in (a dict value merges into its section)."""
+    tree = load_yaml(PUBLISHED_CONFIG.read_text())
+    for k, v in over.items():
+        tree[k] = {**tree.get(k, {}), **v} if isinstance(v, dict) else v
+    folder.mkdir(parents=True)
+    (folder / "config.yml").write_text("\n".join(_yaml(tree)) + "\n")
+    return ExperimentConfig(str(folder))
+
+
+class TrainSpy:
+    """Watches one run_train without changing it: the kernel launches of
+    each step, the rows DeviceDataset draws for each step, and a copy of
+    the online net's state dict at each target sync (taken before the
+    sync, so it is the online net before that step's update)."""
+
+    def __enter__(self):
+        self.steps, self.rows, self.syncs = [], {}, []
+        self._saved = dqn.make_train_step, dqn.sync_target, DeviceDataset.rows
+        make, sync, rows = self._saved
+
+        def make_spied(model, config):
+            step_fn = make(model, config)
+
+            def spied(state, batch, mark=None):
+                before = rn.LAUNCHES.copy()
+                out = step_fn(state, batch, mark)
+                self.steps.append(dict(rn.LAUNCHES - before))
+                return out
+            return spied
+
+        def sync_spied(state):
+            self.syncs.append((state.step + 1, {k: v.detach().clone()
+                                                for k, v in state.model.state_dict().items()}))
+            sync(state)
+
+        def rows_spied(dds, step):
+            out = rows(dds, step)
+            self.rows[int(step)] = out.clone()
+            return out
+
+        dqn.make_train_step, dqn.sync_target, DeviceDataset.rows = (
+            make_spied, sync_spied, rows_spied)
+        return self
+
+    def __exit__(self, *exc):
+        dqn.make_train_step, dqn.sync_target, DeviceDataset.rows = self._saved
+
+
+def steady_rate(config) -> dict:
+    """ms/step and frames/s (B / step time) over the 20 steps after the
+    first 10, from run_train's own frames_per_sec/train at steps 20, 30."""
+    rates = [r["value"] for r in read_metrics(config.run_dir, "frames_per_sec/train")
+             if r["step"] > TRAIN_LOG_EVERY]
+    b = int(config.TPU.BATCH_SIZE)
+    seconds = sum(TRAIN_LOG_EVERY * b / r for r in rates)
+    steps = TRAIN_LOG_EVERY * len(rates)
+    return {"ms_per_step": seconds / steps * 1e3, "frames_per_s": steps * b / seconds,
+            "windows_frames_per_s": rates}
+
+
+def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
+    """The main path in one data mode: a timing run (no checkpoints, also
+    the warm-up), then the counted run with the checks."""
+    mode = {"TPU": {"DEVICE_DATASET": device_dataset}}
+    timing = experiment(tmp / f"{name}_timing",
+                        **{**TRAIN_CUTS, **mode, "CHECKPOINT_INTERVAL": 10 ** 6})
+    dqn.run_train(timing, batcher=TableSource(tables, seed=SEED), log_every=TRAIN_LOG_EVERY)
+    rate = steady_rate(timing)
+
+    config = experiment(tmp / name, **TRAIN_CUTS, **mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with TrainSpy() as spy:
+        state, loss = dqn.run_train(config, batcher=TableSource(tables, seed=SEED),
+                                    log_every=TRAIN_LOG_EVERY)
+    wall = time.perf_counter() - t0
+    launches = dict(rn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = TRAIN_CUTS["NUM_STEPS"]
+    log(f"[train] {name}: {steps} steps in {wall:.2f} s (checkpoints included); "
+        f"launches {launches}; final EMA loss {loss:.6f}; peak device memory {peak:.2f} GiB; "
+        f"steady state {rate['ms_per_step']:.4f} ms/step, {rate['frames_per_s']:.1f} "
+        f"frames/s (windows {[round(r, 1) for r in rate['windows_frames_per_s']]})")
+
+    want = {("identity", "bfloat16"): 2}
+    if len(spy.steps) != steps or any(d != want for d in spy.steps):
+        raise AssertionError(f"{name}: launches per step {spy.steps}, not {want} each")
+    losses = [r["value"] for r in read_metrics(config.run_dir, "avg_q_loss/train")]
+    log(f"[train] {name}: logged EMA losses {losses}")
+    if len(losses) != steps // TRAIN_LOG_EVERY or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: logged losses {losses}")
+    interval, every = TRAIN_CUTS["TARGET_UPDATE_INTERVAL"], TRAIN_CUTS["CHECKPOINT_INTERVAL"]
+    if [k for k, _ in spy.syncs] != list(range(interval, steps + 1, interval)):
+        raise AssertionError(f"{name}: target synced at steps {[k for k, _ in spy.syncs]}")
+    for k, online in spy.syncs:
+        # the first checkpoint after the sync, before the next sync
+        ckpt = restore_checkpoint(config.models_dir, -(-k // every) * every)
+        params, stats = flax_from_qnet_state_dict(online, *layout(state.model))
+        for field, tree in (("target_params", params), ("target_batch_stats", stats)):
+            for a, b in zip(_leaves(ckpt[field]), _leaves(tree)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: {field} after the sync at step {k} is not "
+                                         f"the online net before that step")
+    names = sorted(os.listdir(config.models_dir))
+    if names != sorted(f"sample{k}.ckpt" for k in range(every, steps + 1, every)):
+        raise AssertionError(f"{name}: checkpoints {names}")
+    log(f"[train] {name}: one identity bf16 launch pair per step; target == online "
+        f"before the update after the syncs at {[k for k, _ in spy.syncs]}; {names}")
+    return {"config": config, "state": state, "spy": spy, "launches": launches,
+            "ema_loss": float(state.ema_loss), "rate": rate, "peak_gib": peak,
+            "losses": losses}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [np.asarray(tree)]
+
+
+def resume_check(first: dict) -> dict:
+    config = ExperimentConfig(first["config"].folder, resume=True)
+    with TrainSpy() as spy:
+        state, _ = dqn.run_train(config, resume_from=RESUME_FROM,
+                                 batcher=TableSource(first["tables"], seed=SEED),
+                                 log_every=TRAIN_LOG_EVERY)
+    steps = range(RESUME_FROM, TRAIN_CUTS["NUM_STEPS"])
+    same_rows = all(torch.equal(spy.rows[k], first["spy"].rows[k]) for k in steps)
+    ema, want = float(state.ema_loss), first["ema_loss"]
+    log(f"[train] resume from sample{RESUME_FROM}: rows of steps {steps.start + 1}-{steps.stop} "
+        f"{'equal' if same_rows else 'DIFFER'}; final EMA loss {ema:.6f} vs {want:.6f} "
+        f"(relative {abs(ema - want) / abs(want):.3g})")
+    if sorted(spy.rows) != list(steps) or not same_rows:
+        raise AssertionError("the resumed run drew other rows")
+    if not abs(ema - want) <= EMA_RTOL * abs(want):
+        raise AssertionError(f"resumed EMA loss {ema} vs {want}")
+    return {"rows_equal": same_rows, "ema_loss": ema, "first_ema_loss": want}
+
+
+class no_tf32:
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+class plain_prologue:
+    """The train step's prologue through the plain resize twin, on the
+    card too, in place of the kernel."""
+
+    def __enter__(self):
+        self.saved = dqn.resize_normalize
+        dqn.resize_normalize = lambda x, out, dtype: rn.resize_normalize_reference(x, out).to(dtype)
+
+    def __exit__(self, *exc):
+        dqn.resize_normalize = self.saved
+
+
+def bf16_vs_f32(tmp: Path, dds: DeviceDataset) -> dict:
+    """Three float32 steps (no autocast, no TF32, the plain resize twin in
+    place of the kernel) from the seeded state, and before each a bf16 step
+    from a copy of the same state on the same batch: their losses."""
+    configs = {dtype: experiment(tmp / f"precision_{dtype}", **TRAIN_CUTS,
+                                 TPU={"COMPUTE_DTYPE": dtype})
+               for dtype in ("bfloat16", "float32")}
+    state = dqn.create_train_state(configs["float32"])
+    steps = {dtype: dqn.make_train_step(state.model, c) for dtype, c in configs.items()}
+    out = {"bfloat16": [], "float32": []}
+    launched = {"bfloat16": {("identity", "bfloat16"): 2}, "float32": {}}
+    with no_tf32():
+        for k in range(3):
+            batch = dds.sample(k)
+            for dtype, st, prologue in (
+                    ("bfloat16", copy.deepcopy(state), contextlib.nullcontext()),
+                    ("float32", state, plain_prologue())):
+                before = rn.LAUNCHES.copy()
+                with prologue:
+                    out[dtype].append(float(steps[dtype](st, batch)["loss"]))
+                if dict(rn.LAUNCHES - before) != launched[dtype]:
+                    raise AssertionError(f"a {dtype} step launched {dict(rn.LAUNCHES - before)}")
+    diff = [abs(a - b) for a, b in zip(out["bfloat16"], out["float32"])]
+    log(f"[train] bf16 losses {out['bfloat16']} vs float32 {out['float32']}: abs diff {diff}")
+    for a, b in zip(out["bfloat16"], out["float32"]):
+        if not abs(a - b) <= BF16_LOSS_RTOL * abs(b) + BF16_LOSS_ATOL:
+            raise AssertionError(f"bf16 loss {a} vs float32 {b}")
+    return {"bf16_losses": out["bfloat16"], "f32_losses": out["float32"], "abs_diff": diff}
+
+
+def card_vs_cpu(tmp: Path) -> dict:
+    """Three float32 steps at 96 px, B = 8, across a sync (interval 2), on
+    the card and on the CPU from the same seeded state and batches:
+    losses and every parameter within CPU_ATOL."""
+    tables = synthetic_video_tables(64, 128, 96, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    host = [TableSource(tables).get_batch(rng.integers(0, 128, 8)) for _ in range(3)]
+    config = experiment(tmp / "card_vs_cpu", **{
+        **TRAIN_CUTS, "TARGET_UPDATE_INTERVAL": 2,
+        "TPU": {"IMAGE_SIZE": 96, "BATCH_SIZE": 8, "COMPUTE_DTYPE": "float32"}})
+    results = {}
+    with no_tf32():
+        for device in ("cuda", "cpu"):
+            state = dqn.create_train_state(config, device=device)
+            step_fn = dqn.make_train_step(state.model, config)
+            losses = [float(step_fn(state, {k: torch.from_numpy(v).to(device)
+                                            for k, v in b.items()})["loss"]) for b in host]
+            results[device] = (losses, dqn.flax_state_dict(state))
+    loss_diff = max(abs(a - b) for a, b in zip(results["cuda"][0], results["cpu"][0]))
+    diffs = [np.abs(a - b) for field in ("params", "target_params")
+             for a, b in zip(_leaves(results["cuda"][1][field]), _leaves(results["cpu"][1][field]))]
+    param_diff = max(float(d.max()) for d in diffs)
+    beyond = sum(int((d > CPU_ATOL).sum()) for d in diffs)
+    size = sum(d.size for d in diffs)
+    cap = CPU_CAP_LR * float(config.LEARNING_RATE)
+    log(f"[train] 96 px float32, card vs cpu: losses {results['cuda'][0]} vs "
+        f"{results['cpu'][0]}; max abs diff loss {loss_diff:.3g}, params {param_diff:.3g} "
+        f"({beyond} of {size} values beyond {CPU_ATOL}; allowed {CPU_BEYOND_MAX}, "
+        f"none beyond {cap:.3g})")
+    if not (loss_diff <= CPU_ATOL and beyond <= CPU_BEYOND_MAX and param_diff <= cap):
+        raise AssertionError(f"card vs cpu: loss {loss_diff} > {CPU_ATOL}, or {beyond} "
+                             f"params > {CPU_BEYOND_MAX} beyond {CPU_ATOL}, or the largest "
+                             f"{param_diff} > {cap}")
+    return {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": param_diff,
+            "params_beyond_1e-4": beyond, "params_beyond_1e-4_allowed": CPU_BEYOND_MAX,
+            "params": size}
+
+
+def step_breakdown(tmp: Path, dds: DeviceDataset) -> dict:
+    """One bf16 step, device mode: torch.profiler over 3 steps (top
+    kernels, the identity kernel's share, busy and idle share), and the
+    device time of each phase from CUDA events at the phase boundaries
+    (the step's `mark` hook), the mean over 5 steps."""
+    config = experiment(tmp / "breakdown", **TRAIN_CUTS)
+    state = dqn.create_train_state(config)
+    step_fn = dqn.make_train_step(state.model, config)
+    k = iter(range(10 ** 6))
+    for _ in range(3):
+        step_fn(state, dds.sample(next(k)))
+    prof = device_profile(lambda: step_fn(state, dds.sample(next(k))), calls=3)
+    log_profile("train step, B=256 bf16, device dataset", prof, top=15)
+    ident = sum(us for name, (_, us) in prof["by_name"].items()
+                if "resize_normalize_identity" in name) / prof["calls"] / 1e3
+    if prof["device_ms"]:
+        log(f"[profile] train step: identity kernel {ident:.4f} ms/step, "
+            f"{ident / prof['device_ms']:.2%} of the step's device time")
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+    # no synchronize between the 5 steps: the host runs ahead as in the
+    # loop, so an interval between marks is the device's time for that
+    # phase ("end" runs from Adam's last kernel to the next step's sampler)
+    for _ in range(5):
+        mark("sample")
+        batch = dds.sample(next(k))
+        step_fn(state, batch, mark)
+    torch.cuda.synchronize()
+    split, count = {}, {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        split[name] = split.get(name, 0.0) + a.elapsed_time(b)
+        count[name] = count.get(name, 0) + 1
+    split = {name: ms / count[name] for name, ms in split.items()}
+    total = sum(split.values())
+    log("[profile] train step phases (device ms, CUDA events, mean of 5): " + ", ".join(
+        f"{n} {ms:.4f} ({ms / total:.1%})" for n, ms in split.items()) + f"; total {total:.4f}")
+    return {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "busy_share": prof["busy_share"], "identity_ms": ident, "phases_ms": split}
+
+
+def train_path() -> dict:
+    log(f"[train] published config {PUBLISHED_CONFIG.name} at 224 px, B = 256, bf16, cut: "
+        f"{TRAIN_CUTS}; data: {TRAIN_FRAMES} frames, {TRAIN_ROWS} rows")
+    t0 = time.perf_counter()
+    tables = synthetic_video_tables(TRAIN_FRAMES, TRAIN_ROWS, 224, seed=SEED)
+    log(f"[train] made {tables['frames'].nbytes / 1e9:.2f} GB of frames in "
+        f"{time.perf_counter() - t0:.2f} s; reward rate {tables['reward'].mean():.4f}")
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        device = train_run(tmp, "device_dataset", tables, True)
+        device["tables"] = tables
+        resume = resume_check(device)
+        host = train_run(tmp, "host_fed", tables, False)
+        dds = DeviceDataset(tables, int(device["config"].TPU.BATCH_SIZE), seed=SEED)
+        precision = bf16_vs_f32(tmp, dds)
+        breakdown = step_breakdown(tmp, dds)
+        cpu = card_vs_cpu(tmp)
+    launches = {path: device["launches"].get((path, "bfloat16"), 0)
+                + host["launches"].get((path, "bfloat16"), 0) for path in ("identity", "banded")}
+    return {"launches": launches,
+            "modes": {m["config"].folder.rsplit("/", 1)[-1]: {
+                "ms_per_step": m["rate"]["ms_per_step"], "frames_per_s": m["rate"]["frames_per_s"],
+                "peak_gib": m["peak_gib"], "ema_loss": m["ema_loss"], "logged": m["losses"]}
+                for m in (device, host)},
+            "resume": resume, "precision": precision, "breakdown": breakdown,
+            "card_vs_cpu": cpu}
+
+
 def main() -> None:
     environment()
     build()
     rows = kernel_vs_plain()
     serve = serving_path()
+    train = train_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -492,7 +851,9 @@ def main() -> None:
             "route": "cuda",
             "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
-            "launches": serve["launches"][path],
+            "launches": serve["launches"][path] + train["launches"][path],
+            "launches_serve": serve["launches"][path],
+            "launches_train": train["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -502,6 +863,7 @@ def main() -> None:
             "shapes": mine,
         })
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,13 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
+from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
+from video_dqn_tpu_torch.data.tables import synthetic_video_tables
 from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.scorer import make_model_scorer, make_multiclass_scorer
 from video_dqn_tpu_torch.models.qnet import HabitatDQN, build_qnet
+from video_dqn_tpu_torch.train.dqn import create_train_state, run_train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "video_dqn_tpu_torch"
@@ -24,7 +28,9 @@ FORBIDDEN = re.compile(
 
 
 def test_every_module_imports_with_jax_blocked():
-    assert "video_dqn_tpu_torch.eval.scorer" in MODULES
+    for name in ("eval.scorer", "train.dqn", "data.device_dataset", "core.msgpack",
+                 "core.checkpoint", "core.prefetch"):
+        assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'flax', 'optax', 'video_dqn_tpu'):\n"
@@ -56,6 +62,8 @@ def test_forbidden_pattern_spares_the_port_name():
 CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
                       ARCHITECTURE="basic", PANORAMA=False, PREVIOUS_IMAGES=False,
                       PRETRAINED_MODEL_LOCATION="unused.torch")
+TRAIN_CFG = get_cfg_defaults()
+TABLES = synthetic_video_tables(4, 4, 8)
 
 
 @pytest.mark.parametrize("entry", [
@@ -63,8 +71,11 @@ CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
     lambda: load_eval_model(CFG, CFG),
     lambda: make_model_scorer(HabitatDQN(panorama=False, image_size=64), 0),
     lambda: make_multiclass_scorer(HabitatDQN(panorama=False, image_size=64)),
+    lambda: create_train_state(TRAIN_CFG),
+    lambda: DeviceDataset(TABLES, 2),
+    lambda: run_train(TRAIN_CFG, batcher=object()),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
-        "make_multiclass_scorer"])
+        "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -12,7 +12,12 @@ Layout:
   _build.py   nvcc build of csrc/ into a shared library, loaded by ctypes
   csrc/       hand-written CUDA kernels for sm_90a
   ops/        ImageNet normalize; the fused uint8 resize+normalize kernel
-  models/     ResNet18, the HabitatDQN Q-net, the Flax->torch weight bridge
+  models/     ResNet18, the HabitatDQN Q-net, the weight and Adam-state
+              bridge to and from the JAX package's Flax layout
+  core/       config trees and the YAML subset, experiment folders,
+              metrics.jsonl, sample<N>.ckpt in Flax's msgpack, host prefetch
+  data/       the device-resident dataset and its host twin
+  train/      the double-DQN train step and run_train
   eval/       panorama scorers and the eval model loader
 """
 

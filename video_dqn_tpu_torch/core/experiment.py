@@ -1,0 +1,34 @@
+"""Folder-as-experiment (counterpart of video_dqn_tpu/core/experiment.py):
+an experiment is a folder holding `config.yml`; loading merges it over the
+defaults, validates, freezes and exposes every key as an attribute. Run
+logs go to an auto-incremented `run<N>` subfolder (resume reuses the
+latest), checkpoints to `<folder>/models`."""
+
+from __future__ import annotations
+
+import os
+import re
+
+from .defaults import VALID_VALUES, get_cfg_defaults
+from .metrics import MetricsWriter
+
+
+class ExperimentConfig:
+    def __init__(self, folder: str, resume: bool = False):
+        self.folder = folder
+        runs = [int(m.group(1)) for f in os.listdir(folder)
+                if (m := re.match(r"^run(\d+)$", f))]
+        run = max(runs, default=0) + (0 if resume else 1)
+        self.run_dir = os.path.join(folder, f"run{run}")
+
+        cfg = get_cfg_defaults()
+        cfg.merge_from_file(os.path.join(folder, "config.yml"))
+        cfg.validate(VALID_VALUES)
+        self.cfg = cfg.freeze()
+        for k in cfg:
+            setattr(self, k, cfg[k])
+        self.writer = MetricsWriter(self.run_dir)
+
+    @property
+    def models_dir(self) -> str:
+        return os.path.join(self.folder, "models")

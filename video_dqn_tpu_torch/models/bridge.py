@@ -1,24 +1,32 @@
-"""Weights into the port: the JAX package's Flax Q-net trees (as numpy)
-to a torch state dict, and the reference's `.torch` checkpoints.
+"""Weights between the port and the JAX package's Flax layout, both ways,
+and the reference's `.torch` checkpoints.
 
-The state dict uses the reference's naming, which is also the port's
-HabitatDQN naming: `resnet.*` (torchvision), the trunk again under
+The port's state dict uses the reference's naming, which is also the
+port's HabitatDQN naming: `resnet.*` (torchvision), the trunk again under
 `features.{0,1,4,5,6,7}`, the head conv `features.8`, and `top.{0,2,4}`
-(or `top` for the basic head). This is the inverse of the JAX package's
-torch->Flax converter (convert_qnet):
-  * conv kernels HWIO -> OIHW; dense kernels (in, out) -> (out, in);
+(or `top` for the basic head). One table (`_entries`) pairs each torch
+tensor with its Flax leaf and the layout change between them; both
+directions read it:
+  * conv kernels OIHW <-> HWIO; dense kernels (out, in) <-> (in, out);
   * the first head dense reads a flattened map: Flax flattens each frame
     as (H, W, C), torch as (C, H, W), so its input columns are re-ordered
     per frame block;
-  * BatchNorm scale/bias -> weight/bias, mean/var -> running stats.
+  * BatchNorm weight/bias <-> scale/bias (params), running stats <->
+    mean/var (batch_stats).
+Adam's moments change layout as their parameters do, so optax's
+`{count, mu, nu}` maps onto torch.optim.Adam's per-parameter
+`step`/`exp_avg`/`exp_avg_sq` through the same table (`adam_to_optax`,
+`adam_from_optax`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from .qnet import head_hw
 
 # index of each trunk module in the reference's `features` Sequential
 _FEATURE_INDEX = {"conv1": 0, "bn1": 1, "layer1": 4, "layer2": 5,
@@ -29,50 +37,139 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32))  # a copy: leaves may be read-only
 
 
-def _conv(kernel) -> torch.Tensor:
-    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))  # HWIO -> OIHW
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
 
 
-def _dense(kernel) -> torch.Tensor:
-    return _t(np.asarray(kernel).T)  # (in, out) -> (out, in)
+def _conv_to_torch(k: np.ndarray) -> np.ndarray:
+    return k.transpose(3, 2, 0, 1)  # HWIO -> OIHW
 
 
-def _dense_from_hwc(kernel, c: int, h: int, w: int, frames: int) -> torch.Tensor:
-    """Inverse of the converter's dense_kernel_chw: Flax rows ordered
-    (frame, h, w, c) -> torch columns ordered (frame, c, h, w)."""
-    k = np.asarray(kernel)
-    out_dim = k.shape[1]
-    if k.shape[0] != frames * h * w * c:
-        raise ValueError(f"head dense has {k.shape[0]} inputs, expected "
-                         f"{frames}*{h}*{w}*{c}")
-    blocks = k.T.reshape(out_dim, frames, h, w, c).transpose(0, 1, 4, 2, 3)
-    return _t(blocks.reshape(out_dim, frames * c * h * w))
+def _conv_to_flax(w: np.ndarray) -> np.ndarray:
+    return w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
 
 
-def _bn(sd: Dict, prefix: str, params: Mapping, stats: Mapping) -> None:
-    sd[f"{prefix}.weight"] = _t(params["scale"])
-    sd[f"{prefix}.bias"] = _t(params["bias"])
-    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
-    sd[f"{prefix}.running_var"] = _t(stats["var"])
-    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+def _transpose(k: np.ndarray) -> np.ndarray:
+    return k.T  # dense (in, out) <-> (out, in)
 
 
-def _resnet18(params: Mapping, stats: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ResNet18 tree -> torchvision naming, without `fc`."""
-    sd: Dict[str, torch.Tensor] = {"conv1.weight": _conv(params["conv1"]["kernel"])}
-    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+def _hwc_dense(c: int, h: int, w: int, frames: int) -> Tuple[Callable, Callable]:
+    """The head's first dense: Flax rows ordered (frame, h, w, c) <-> torch
+    columns ordered (frame, c, h, w)."""
+    def to_torch(k: np.ndarray) -> np.ndarray:
+        if k.shape[0] != frames * h * w * c:
+            raise ValueError(f"head dense has {k.shape[0]} inputs, expected "
+                             f"{frames}*{h}*{w}*{c}")
+        out_dim = k.shape[1]
+        blocks = k.T.reshape(out_dim, frames, h, w, c).transpose(0, 1, 4, 2, 3)
+        return blocks.reshape(out_dim, frames * c * h * w)
+
+    def to_flax(m: np.ndarray) -> np.ndarray:
+        out_dim = m.shape[0]
+        blocks = m.reshape(out_dim, frames, c, h, w).transpose(0, 1, 3, 4, 2)
+        return blocks.reshape(out_dim, frames * h * w * c).T
+
+    return to_torch, to_flax
+
+
+class _Entry(NamedTuple):
+    collection: str          # "params" or "batch_stats"
+    name: str                # torch state-dict name
+    path: Tuple[str, ...]    # Flax tree path
+    to_torch: Callable
+    to_flax: Callable
+
+
+_CONV = (_conv_to_torch, _conv_to_flax)
+_DENSE = (_transpose, _transpose)
+_VEC = (_same, _same)
+
+
+def _bn(torch_name: str, flax_path: Tuple[str, ...]) -> List[_Entry]:
+    return [_Entry("params", f"{torch_name}.weight", flax_path + ("scale",), *_VEC),
+            _Entry("params", f"{torch_name}.bias", flax_path + ("bias",), *_VEC),
+            _Entry("batch_stats", f"{torch_name}.running_mean", flax_path + ("mean",), *_VEC),
+            _Entry("batch_stats", f"{torch_name}.running_var", flax_path + ("var",), *_VEC)]
+
+
+def _trunk() -> List[_Entry]:
+    """ResNet18 without `fc`: torchvision names, Flax paths under the
+    trunk. The first block of stages 2-4 has the 1x1 projection."""
+    out = [_Entry("params", "conv1.weight", ("conv1", "kernel"), *_CONV)] + _bn("bn1", ("bn1",))
     for stage in range(1, 5):
         for block in range(2):
-            p, s = params[f"layer{stage}_{block}"], stats[f"layer{stage}_{block}"]
-            t = f"layer{stage}.{block}"
-            sd[f"{t}.conv1.weight"] = _conv(p["conv1"]["kernel"])
-            _bn(sd, f"{t}.bn1", p["bn1"], s["bn1"])
-            sd[f"{t}.conv2.weight"] = _conv(p["conv2"]["kernel"])
-            _bn(sd, f"{t}.bn2", p["bn2"], s["bn2"])
-            if "downsample_conv" in p:
-                sd[f"{t}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
-                _bn(sd, f"{t}.downsample.1", p["downsample_bn"], s["downsample_bn"])
-    return sd
+            t, f = f"layer{stage}.{block}", f"layer{stage}_{block}"
+            out.append(_Entry("params", f"{t}.conv1.weight", (f, "conv1", "kernel"), *_CONV))
+            out += _bn(f"{t}.bn1", (f, "bn1"))
+            out.append(_Entry("params", f"{t}.conv2.weight", (f, "conv2", "kernel"), *_CONV))
+            out += _bn(f"{t}.bn2", (f, "bn2"))
+            if stage > 1 and block == 0:
+                out.append(_Entry("params", f"{t}.downsample.0.weight",
+                                  (f, "downsample_conv", "kernel"), *_CONV))
+                out += _bn(f"{t}.downsample.1", (f, "downsample_bn"))
+    return out
+
+
+def _entries(extra_capacity: bool, num_frames: int,
+             head_hw: Tuple[int, int]) -> List[_Entry]:
+    """Every tensor of the Q-net once, under its `resnet.*` / head name."""
+    out = [e._replace(name=f"resnet.{e.name}", path=("resnet",) + e.path) for e in _trunk()]
+    if extra_capacity:
+        out += [_Entry("params", "features.8.weight", ("head_conv", "kernel"), *_CONV),
+                _Entry("params", "features.8.bias", ("head_conv", "bias"), *_VEC),
+                _Entry("params", "top.0.weight", ("top_dense1", "kernel"),
+                       *_hwc_dense(64, head_hw[0], head_hw[1], num_frames)),
+                _Entry("params", "top.0.bias", ("top_dense1", "bias"), *_VEC)]
+        for i, name in ((2, "top_dense2"), (4, "top_dense3")):
+            out += [_Entry("params", f"top.{i}.weight", (name, "kernel"), *_DENSE),
+                    _Entry("params", f"top.{i}.bias", (name, "bias"), *_VEC)]
+    else:
+        out += [_Entry("params", "top.weight", ("top_dense1", "kernel"), *_DENSE),
+                _Entry("params", "top.bias", ("top_dense1", "bias"), *_VEC)]
+    return out
+
+
+def layout(model) -> Tuple[bool, int, Tuple[int, int]]:
+    """(extra_capacity, num_frames, head_hw) of a port HabitatDQN: the
+    arguments every conversion here takes."""
+    side = head_hw(model.image_size)
+    return model.extra_capacity, model.num_frames, (side, side)
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def from_flax(tree: Mapping, collection: str, extra_capacity: bool, num_frames: int,
+              head_hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+    """A Flax `collection` tree (params-shaped for params and Adam moments,
+    or batch_stats) -> {torch name: float32 tensor}, one name per tensor
+    (`resnet.*`, no `features.*` aliases)."""
+    return {e.name: _t(e.to_torch(np.asarray(_get(tree, e.path))))
+            for e in _entries(extra_capacity, num_frames, head_hw)
+            if e.collection == collection}
+
+
+def to_flax(named: Mapping[str, torch.Tensor], collection: str, extra_capacity: bool,
+            num_frames: int, head_hw: Tuple[int, int]) -> Dict:
+    """{torch name: tensor} (a state dict, named parameters, their
+    gradients or Adam moments) -> the Flax `collection` tree of float32
+    numpy arrays, copies of the tensors. Reads the `resnet.*` and head
+    names only."""
+    tree: Dict = {}
+    for e in _entries(extra_capacity, num_frames, head_hw):
+        if e.collection == collection:
+            a = named[e.name].detach().to("cpu", torch.float32).numpy()
+            _put(tree, e.path, np.array(e.to_flax(a), order="C"))  # a copy, not a view
+    return tree
 
 
 def qnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
@@ -82,24 +179,60 @@ def qnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     """Flax HabitatDQN (params, batch_stats), as numpy trees, -> the port's
     (and the reference's) state dict. `head_hw` is the extra_capacity head
     map: (5, 5) at 224 px, (2, 2) at 128, (1, 1) at 96."""
-    trunk = _resnet18(params["resnet"], batch_stats["resnet"])
-    sd = {f"resnet.{k}": v for k, v in trunk.items()}
-    for k, v in trunk.items():
-        head, _, rest = k.partition(".")
-        sd[f"features.{_FEATURE_INDEX[head]}.{rest}"] = v
-    if extra_capacity:
-        sd["features.8.weight"] = _conv(params["head_conv"]["kernel"])
-        sd["features.8.bias"] = _t(params["head_conv"]["bias"])
-        sd["top.0.weight"] = _dense_from_hwc(params["top_dense1"]["kernel"], 64,
-                                             head_hw[0], head_hw[1], num_frames)
-        sd["top.0.bias"] = _t(params["top_dense1"]["bias"])
-        for i, name in ((2, "top_dense2"), (4, "top_dense3")):
-            sd[f"top.{i}.weight"] = _dense(params[name]["kernel"])
-            sd[f"top.{i}.bias"] = _t(params[name]["bias"])
-    else:
-        sd["top.weight"] = _dense(params["top_dense1"]["kernel"])
-        sd["top.bias"] = _t(params["top_dense1"]["bias"])
+    geometry = (extra_capacity, num_frames, head_hw)
+    sd = {**from_flax(params, "params", *geometry),
+          **from_flax(batch_stats, "batch_stats", *geometry)}
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(0)
+    for k in [k for k in sd if k.startswith("resnet.")]:
+        head, _, rest = k[len("resnet."):].partition(".")
+        sd[f"features.{_FEATURE_INDEX[head]}.{rest}"] = sd[k]
     return sd
+
+
+def flax_from_qnet_state_dict(sd: Mapping[str, torch.Tensor], extra_capacity: bool,
+                              num_frames: int, head_hw: Tuple[int, int] = (5, 5)
+                              ) -> Tuple[Dict, Dict]:
+    """The inverse of qnet_state_dict_from_flax: a port state dict ->
+    Flax (params, batch_stats) as numpy trees."""
+    geometry = (extra_capacity, num_frames, head_hw)
+    return to_flax(sd, "params", *geometry), to_flax(sd, "batch_stats", *geometry)
+
+
+def adam_to_optax(optimizer: torch.optim.Adam, model) -> Dict:
+    """torch.optim.Adam's state over `model`'s parameters -> optax
+    ScaleByAdamState as a Flax state dict: {count (int32), mu, nu}. Before
+    the first step Adam holds no state: count 0, zero moments."""
+    named = dict(model.named_parameters())
+    states = [optimizer.state.get(p, {}) for p in named.values()]
+    counts = {int(s["step"]) for s in states if s}
+    if len(counts) > 1 or (counts and len(states) != sum(bool(s) for s in states)):
+        raise ValueError(f"parameters are at different Adam steps: {sorted(counts)}")
+    count = counts.pop() if counts else 0
+    moments = {}
+    for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        moments[key] = to_flax(
+            {n: s[field] if s else torch.zeros_like(p)
+             for (n, p), s in zip(named.items(), states)},
+            "params", *layout(model))
+    return {"count": np.asarray(count, np.int32), **moments}
+
+
+def adam_from_optax(optimizer: torch.optim.Adam, model, opt_state: Mapping) -> None:
+    """Load an optax ScaleByAdamState state dict ({count, mu, nu}) into
+    torch.optim.Adam's per-parameter state, in place."""
+    count = int(np.asarray(opt_state["count"]))
+    mu = from_flax(opt_state["mu"], "params", *layout(model))
+    nu = from_flax(opt_state["nu"], "params", *layout(model))
+    for name, p in model.named_parameters():
+        if mu[name].shape != p.shape:
+            raise ValueError(f"Adam moment {name}: {tuple(mu[name].shape)} "
+                             f"vs parameter {tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.zeros_like(p).copy_(mu[name]),
+            "exp_avg_sq": torch.zeros_like(p).copy_(nu[name]),
+        }
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -43,6 +43,7 @@ class HabitatDQN(nn.Module):
         self.num_classes = num_classes
         self.extra_capacity = extra_capacity
         self.num_frames = 4 if panorama else 1
+        self.image_size = image_size
         self.resnet = ResNet18(features="conv" if extra_capacity else "pool")
         trunk = self.resnet.trunk()
         if extra_capacity:
@@ -76,6 +77,16 @@ class HabitatDQN(nn.Module):
         out = self.top(feats.reshape(b, -1))
         return out.float().reshape(b, self.num_classes, self.action_dim)
 
+    def set_train(self, mode: bool = True) -> "HabitatDQN":
+        """The reference's set_train(): train mode, except that
+        extra_capacity keeps the trunk's BatchNorm on its running
+        statistics (its scale and shift still learn). A bare .train()
+        would switch that trunk to batch statistics."""
+        self.train(mode)
+        if self.extra_capacity:
+            self.resnet.eval()
+        return self
+
 
 def build_qnet(config, image_size: int = 224, device=None) -> HabitatDQN:
     """Mirror of the JAX build_qnet: VALUE_LEARNING/ONE_ACTION collapse to
@@ -95,16 +106,25 @@ def build_qnet(config, image_size: int = 224, device=None) -> HabitatDQN:
     return model.to(device, memory_format=torch.channels_last).eval()
 
 
+# Flax's lecun_normal draws a standard normal truncated to [-2, 2] and
+# divides by its standard deviation, so that the kernel's variance is
+# 1/fan_in (jax.nn.initializers.variance_scaling, "truncated_normal")
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_qnet(model: HabitatDQN, generator: torch.Generator) -> HabitatDQN:
     """Seeded init in place with the JAX package's initializers: conv and
-    dense kernels normal with variance 1/fan_in (Flax lecun_normal, not
-    truncated), biases 0, BatchNorm scale 1, shift 0, statistics (0, 1)."""
+    dense kernels lecun_normal (a standard normal truncated to [-2, 2],
+    times sqrt(1/fan_in) / TRUNCATED_NORMAL_STD), biases 0, BatchNorm
+    scale 1, shift 0, statistics (0, 1). `generator` is a CPU generator;
+    the model may lie on any device."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             w = module.weight
-            std = 1.0 / math.sqrt(w[0].numel())
-            w.copy_(torch.randn(w.shape, generator=generator) * std)
+            draw = torch.empty(w.shape)
+            nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.copy_(draw * (1.0 / math.sqrt(w[0].numel()) / TRUNCATED_NORMAL_STD))
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.BatchNorm2d):

@@ -3,7 +3,8 @@
 
 Module names follow torchvision's resnet18 (`conv1`, `bn1`, `layerS.B.*`,
 `downsample.{0,1}`, `fc`), which is the naming of the reference's `.torch`
-checkpoints. BatchNorm uses eps 1e-5; the max-pool pads by 1. The JAX
+checkpoints. BatchNorm uses eps 1e-5 and, in train mode, the Flax update
+of its running statistics (`BatchNorm2d`); the max-pool pads by 1. The JAX
 package's space-to-depth stem (`Stem7x7(s2d=True)`) is a TPU layout trick
 that computes the same function and is off by default there; it is not
 ported.
@@ -17,9 +18,32 @@ Feature taps, as in the JAX module:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 TAPS = ("conv", "pool", "logits")
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (eps 1e-5) whose train mode updates the running
+    statistics as Flax's BatchNorm does: Flax momentum 0.9 is torch
+    momentum 0.1, and the running variance moves toward the biased batch
+    variance, where nn.BatchNorm2d takes the unbiased one. The batch is
+    normalized by its biased statistics in both. Eval mode is
+    nn.BatchNorm2d's."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=(0, 2, 3),
+                                       unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class BasicBlock(nn.Module):
@@ -28,15 +52,15 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(cout, eps=1e-5),
+                BatchNorm2d(cout),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +80,7 @@ class ResNet18(nn.Module):
             raise ValueError(f"features must be one of {TAPS}, got {features!r}")
         self.tap = features
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         cin = 64

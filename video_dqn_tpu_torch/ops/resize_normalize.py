@@ -1,5 +1,6 @@
 """Fused uint8 resize + ImageNet normalize: the prologue of every scorer
-call, and the port of the repo's one TPU kernel
+call and, at identity size, of every train step (before and after
+frames), and the port of the repo's one TPU kernel
 (video_dqn_tpu/ops/pallas_image.py `resize_normalize_pallas`).
 
 uint8 NHWC frames (B, H, W, 3) become the normalized tensor the trunk
