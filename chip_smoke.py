@@ -35,7 +35,22 @@ prints no result line):
      steps at 96 px must match the port's CPU steps within 1e-4. Prints
      ms/step and frames/s per mode, a profiled step with its phase split,
      and peak memory;
-  6. a JSON line of every ported kernel, then the result line.
+  6. the real-data training path on the committed fixture
+     (tests/data/torch_qdata, tests/torch_qdata.py): its data.feather (512
+     rows, 32 JPEG frames at 1280x720 and 640x360) read by the port's
+     feather reader must give the JAX batcher's labels, index stream and
+     device-table index maps in expected.npz exactly, and the port's JPEG
+     stage must decode each frame within a mean |difference| of 3.0 of
+     PIL's there. Then the training CLI
+     (video_dqn_tpu_torch.train_q_network.main) trains the published config
+     with DATASET on the fixture's wide.feather (4,096 rows over 4,320 frame
+     files, links to the committed frames, so that a batch of 256 rows names
+     about 496 distinct frames, as a batch of the published ~10^5-row
+     dataset names up to 512), at B = 256, 224 px, bf16, cut as in phase 5,
+     in both data modes, and resumes with -r from sample20 in device mode:
+     the same rows and the same EMA loss. Prints the feather reads, decode
+     frames/s, the device table's build time and ms/step per mode;
+  7. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import re
 import shutil
@@ -57,13 +73,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_dqn_tpu_torch import _build
+from video_dqn_tpu_torch import _build, train_q_network
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
 from video_dqn_tpu_torch.core.config import load_yaml
 from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
 from video_dqn_tpu_torch.core.experiment import ExperimentConfig
 from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
+from video_dqn_tpu_torch.data.feather import read_feather
+from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images
+from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
@@ -71,6 +90,9 @@ from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.train import dqn
+
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -100,7 +122,8 @@ KERNEL_SHAPES = [((96, 256, 342, 3), 224), ((96, 224, 224, 3), 224),
                  ((12, 96, 96, 3), 96), ((256, 224, 224, 3), 224)]
 REQUEST_VIEWS = (12, 24, 48, 96)
 RENDERS = ((224, 224), (256, 342))
-PUBLISHED_CONFIG = Path(__file__).resolve().parent / "configs/experiments/real_data/config.yml"
+ROOT = Path(__file__).resolve().parent
+PUBLISHED_CONFIG = ROOT / "configs/experiments/real_data/config.yml"
 # the training phase: cuts of the published config to fit the time limit
 TRAIN_CUTS = {"TARGET_UPDATE_INTERVAL": 8, "CHECKPOINT_INTERVAL": 10, "NUM_STEPS": 30}
 TRAIN_FRAMES, TRAIN_ROWS, TRAIN_LOG_EVERY = 4096, 8192, 10
@@ -113,6 +136,8 @@ CPU_ATOL = 1e-4            # float32 card steps against float32 CPU steps, 96 px
 # the 23.3M params and target params did, up to 1.48e-4 apart. A few such
 # are allowed; a skipped or wrong update moves millions.
 CPU_BEYOND_MAX, CPU_CAP_LR = 1000, 2
+# the real-data phase: the committed fixture, its frame paths relative to ROOT
+DECODE_BATCH = 512         # paths per timed decode call, as a B = 256 step asks
 
 
 def log(msg: str) -> None:
@@ -189,14 +214,20 @@ def environment() -> None:
 
 
 def build() -> None:
+    """Both native libraries from the checkout's sources, built at once:
+    nvcc for the kernels, the C++ compiler for the host library."""
     t0 = time.perf_counter()
-    compiler_out = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        kernels, host = pool.submit(_build.build), pool.submit(_build.build_host)
+        compiler_out = kernels.result()
+        host.result()
     seconds = time.perf_counter() - t0
     _build.load()
+    _build.load_host()
     for line in compiler_out.splitlines():
         if "ptxas" in line:
             log(f"  {line.strip()}")
-    log(f"[build] {_build.LIB.name} in {seconds:.2f} s")
+    log(f"[build] {_build.LIB.name} and {_build.HOST_LIB.name} in {seconds:.2f} s")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIB)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -530,7 +561,7 @@ def _yaml(tree: dict, indent: str = "") -> list:
     return lines
 
 
-def experiment(folder: Path, **over) -> ExperimentConfig:
+def write_experiment(folder: Path, **over) -> str:
     """A new experiment folder whose config.yml is the published config
     with `over` merged in (a dict value merges into its section)."""
     tree = load_yaml(PUBLISHED_CONFIG.read_text())
@@ -538,7 +569,11 @@ def experiment(folder: Path, **over) -> ExperimentConfig:
         tree[k] = {**tree.get(k, {}), **v} if isinstance(v, dict) else v
     folder.mkdir(parents=True)
     (folder / "config.yml").write_text("\n".join(_yaml(tree)) + "\n")
-    return ExperimentConfig(str(folder))
+    return str(folder)
+
+
+def experiment(folder: Path, **over) -> ExperimentConfig:
+    return ExperimentConfig(write_experiment(folder, **over))
 
 
 class TrainSpy:
@@ -592,6 +627,42 @@ def steady_rate(config) -> dict:
             "windows_frames_per_s": rates}
 
 
+def check_counted_run(name: str, spy: "TrainSpy", config: ExperimentConfig):
+    """A counted 30-step run of the main path: two identity bf16 launches
+    every step and nothing else, a finite EMA loss at every log point, and
+    a checkpoint at every interval. Returns the logged losses and the
+    checkpoint names."""
+    steps = TRAIN_CUTS["NUM_STEPS"]
+    want = {("identity", "bfloat16"): 2}
+    if len(spy.steps) != steps or any(d != want for d in spy.steps):
+        raise AssertionError(f"{name}: launches per step {spy.steps}, not {want} each")
+    losses = [r["value"] for r in read_metrics(config.run_dir, "avg_q_loss/train")]
+    if len(losses) != steps // TRAIN_LOG_EVERY or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: logged losses {losses}")
+    every = TRAIN_CUTS["CHECKPOINT_INTERVAL"]
+    names = sorted(os.listdir(config.models_dir))
+    if names != sorted(f"sample{k}.ckpt" for k in range(every, steps + 1, every)):
+        raise AssertionError(f"{name}: checkpoints {names}")
+    return losses, names
+
+
+def check_resume(label: str, spy: "TrainSpy", first: dict, ema: float) -> dict:
+    """A run resumed from sample20 against the first run: the same rows for
+    steps 21-30 and the same final EMA loss, within EMA_RTOL."""
+    steps = range(RESUME_FROM, TRAIN_CUTS["NUM_STEPS"])
+    same_rows = sorted(spy.rows) == list(steps) and all(
+        torch.equal(spy.rows[k], first["spy"].rows[k]) for k in steps)
+    want = first["ema_loss"]
+    log(f"{label} resume from sample{RESUME_FROM}: rows of steps {steps.start + 1}-{steps.stop} "
+        f"{'equal' if same_rows else 'DIFFER'}; final EMA loss {ema:.6f} vs {want:.6f} "
+        f"(relative {abs(ema - want) / abs(want):.3g})")
+    if not same_rows:
+        raise AssertionError("the resumed run drew other rows")
+    if not abs(ema - want) <= EMA_RTOL * abs(want):
+        raise AssertionError(f"resumed EMA loss {ema} vs {want}")
+    return {"rows_equal": same_rows, "ema_loss": ema, "first_ema_loss": want}
+
+
 def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
     """The main path in one data mode: a timing run (no checkpoints, also
     the warm-up), then the counted run with the checks."""
@@ -618,13 +689,8 @@ def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
         f"steady state {rate['ms_per_step']:.4f} ms/step, {rate['frames_per_s']:.1f} "
         f"frames/s (windows {[round(r, 1) for r in rate['windows_frames_per_s']]})")
 
-    want = {("identity", "bfloat16"): 2}
-    if len(spy.steps) != steps or any(d != want for d in spy.steps):
-        raise AssertionError(f"{name}: launches per step {spy.steps}, not {want} each")
-    losses = [r["value"] for r in read_metrics(config.run_dir, "avg_q_loss/train")]
+    losses, names = check_counted_run(name, spy, config)
     log(f"[train] {name}: logged EMA losses {losses}")
-    if len(losses) != steps // TRAIN_LOG_EVERY or not np.all(np.isfinite(losses)):
-        raise AssertionError(f"{name}: logged losses {losses}")
     interval, every = TRAIN_CUTS["TARGET_UPDATE_INTERVAL"], TRAIN_CUTS["CHECKPOINT_INTERVAL"]
     if [k for k, _ in spy.syncs] != list(range(interval, steps + 1, interval)):
         raise AssertionError(f"{name}: target synced at steps {[k for k, _ in spy.syncs]}")
@@ -637,9 +703,6 @@ def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
                 if not np.array_equal(a, b):
                     raise AssertionError(f"{name}: {field} after the sync at step {k} is not "
                                          f"the online net before that step")
-    names = sorted(os.listdir(config.models_dir))
-    if names != sorted(f"sample{k}.ckpt" for k in range(every, steps + 1, every)):
-        raise AssertionError(f"{name}: checkpoints {names}")
     log(f"[train] {name}: one identity bf16 launch pair per step; target == online "
         f"before the update after the syncs at {[k for k, _ in spy.syncs]}; {names}")
     return {"config": config, "state": state, "spy": spy, "launches": launches,
@@ -659,17 +722,7 @@ def resume_check(first: dict) -> dict:
         state, _ = dqn.run_train(config, resume_from=RESUME_FROM,
                                  batcher=TableSource(first["tables"], seed=SEED),
                                  log_every=TRAIN_LOG_EVERY)
-    steps = range(RESUME_FROM, TRAIN_CUTS["NUM_STEPS"])
-    same_rows = all(torch.equal(spy.rows[k], first["spy"].rows[k]) for k in steps)
-    ema, want = float(state.ema_loss), first["ema_loss"]
-    log(f"[train] resume from sample{RESUME_FROM}: rows of steps {steps.start + 1}-{steps.stop} "
-        f"{'equal' if same_rows else 'DIFFER'}; final EMA loss {ema:.6f} vs {want:.6f} "
-        f"(relative {abs(ema - want) / abs(want):.3g})")
-    if sorted(spy.rows) != list(steps) or not same_rows:
-        raise AssertionError("the resumed run drew other rows")
-    if not abs(ema - want) <= EMA_RTOL * abs(want):
-        raise AssertionError(f"resumed EMA loss {ema} vs {want}")
-    return {"rows_equal": same_rows, "ema_loss": ema, "first_ema_loss": want}
+    return check_resume("[train]", spy, first, float(state.ema_loss))
 
 
 class no_tf32:
@@ -834,12 +887,139 @@ def train_path() -> dict:
             "card_vs_cpu": cpu}
 
 
+def real_data_checks() -> dict:
+    """The fixture against its oracle (expected.npz: the JAX batcher's
+    labels, stream and index maps, PIL's frames); the feather reads, the
+    decode rates, the wide feather's distinct frames a batch and its device
+    table's build."""
+    oracle = torch_qdata.check_oracle()
+    log(f"[real] {torch_qdata.FEATHER}: {oracle['rows']} rows; labels "
+        f"({', '.join(torch_qdata.LABELS)}), reward ratio, index stream and tables() index "
+        f"maps equal to expected.npz; decode of {oracle['frames']} frames vs PIL: mean "
+        f"|diff| per frame max {oracle['frame_mean_abs_diff_max']:.4f}, overall "
+        f"{oracle['mean_abs_diff']:.4f}; largest |diff| {oracle['max_abs_diff']}")
+    read_ms = {}
+    for feather in (torch_qdata.FEATHER, torch_qdata.WIDE_FEATHER):
+        t0 = time.perf_counter()
+        cols = read_feather(feather)
+        read_ms[feather] = (time.perf_counter() - t0) * 1e3
+        log(f"[real] {feather}: {len(cols['before_image'])} rows, {len(cols)} columns read "
+            f"in {read_ms[feather]:.3f} ms")
+
+    paths = [str(p) for p in torch_qdata.expected()["paths"]]
+    threads = decode_threads() or os.cpu_count()
+    rates = {}
+    for label, videos in (("1280x720", ("vid000", "vid001")), ("640x360", ("vid002",))):
+        mine = [p for p in paths if any(f"/{v}/" in p for v in videos)]
+        batch = (mine * (DECODE_BATCH // len(mine) + 1))[:DECODE_BATCH]
+        load_images(batch[:64], IMAGE_SIZE)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            load_images(batch, IMAGE_SIZE)
+            times.append(time.perf_counter() - t0)
+        rates[label] = DECODE_BATCH / float(np.median(times))
+        log(f"[real] decode {label} -> {IMAGE_SIZE}: {rates[label]:.1f} frames/s "
+            f"({DECODE_BATCH} per call, {threads} threads, median of 3)")
+
+    t0 = time.perf_counter()
+    files = torch_qdata.link_wide_frames()
+    link_s = time.perf_counter() - t0
+    batcher = QLearningBatcher(torch_qdata.WIDE_FEATHER, image_size=IMAGE_SIZE,
+                               **torch_qdata.PUBLISHED)
+    stream = batcher.index_stream(int(get_cfg_defaults().TPU.BATCH_SIZE))
+    distinct = [len(set(batcher.cols["before_image"][rows])
+                    | set(batcher.cols["after_image"][rows]))
+                for rows in (next(stream) for _ in range(8))]
+    log(f"[real] {torch_qdata.WIDE_FEATHER}: {len(batcher)} rows over {files} frame files "
+        f"(linked in {link_s:.2f} s); distinct frames in the first 8 batches: {distinct}")
+    if min(distinct) < 480:
+        raise AssertionError(f"a wide batch names only {min(distinct)} distinct frames")
+    t0 = time.perf_counter()
+    tables = batcher.tables(torch.cuda.mem_get_info()[1])
+    decode_s = time.perf_counter() - t0
+    dds = DeviceDataset(tables, 256, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[real] device table of {torch_qdata.WIDE_FEATHER}: {len(tables['frames'])} frames, "
+        f"{dds.bytes / 1e6:.2f} MB, built in {build_s:.4f} s (decode {decode_s:.4f} s, "
+        f"{len(tables['frames']) / decode_s:.1f} frames/s)")
+    del dds, tables
+    return {"feather_read_ms": read_ms, "wide_rows": len(batcher), "wide_files": files,
+            "wide_distinct_frames_per_batch": distinct, "oracle": oracle,
+            "decode_frames_per_s": rates, "decode_threads": threads,
+            "table_build_s": build_s, "table_decode_s": decode_s}
+
+
+def real_data_run(tmp: Path, name: str, device_dataset: bool) -> dict:
+    """The CLI on the fixture in one data mode: a timing run (no
+    checkpoints, also the warm-up), then the counted run with the checks."""
+    cuts = {**TRAIN_CUTS, "DATASET": torch_qdata.WIDE_FEATHER,
+            "TPU": {"DEVICE_DATASET": device_dataset}}
+    every = ["--log-every", str(TRAIN_LOG_EVERY)]
+    timing = write_experiment(tmp / f"{name}_timing", **{**cuts, "CHECKPOINT_INTERVAL": 10 ** 6})
+    train_q_network.main([timing, *every])
+    rate = steady_rate(ExperimentConfig(timing, resume=True))
+
+    folder = write_experiment(tmp / name, **cuts)
+    torch.cuda.synchronize()
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with TrainSpy() as spy:
+        state, loss = train_q_network.main([folder, *every])
+    wall = time.perf_counter() - t0
+    launches = dict(rn.LAUNCHES)
+    steps = TRAIN_CUTS["NUM_STEPS"]
+    config = ExperimentConfig(folder, resume=True)
+    losses = [r["value"] for r in read_metrics(config.run_dir, "avg_q_loss/train")]
+    log(f"[real] {name}: {steps} steps in {wall:.2f} s (start-up and checkpoints included); "
+        f"launches {launches}; logged EMA losses {losses}; steady state "
+        f"{rate['ms_per_step']:.4f} ms/step, {rate['frames_per_s']:.1f} frames/s (windows "
+        f"{[round(r, 1) for r in rate['windows_frames_per_s']]})")
+    check_counted_run(name, spy, config)
+    return {"folder": folder, "spy": spy, "launches": launches, "rate": rate,
+            "ema_loss": float(state.ema_loss), "losses": losses}
+
+
+def real_data_resume(first: dict) -> dict:
+    """-r from sample20 (the later checkpoint taken away): the rows of steps
+    21-30 and the final EMA loss of the first run."""
+    os.remove(Path(first["folder"]) / "models" / f"sample{TRAIN_CUTS['NUM_STEPS']}.ckpt")
+    with TrainSpy() as spy:
+        state, _ = train_q_network.main(["-r", first["folder"], "--log-every",
+                                         str(TRAIN_LOG_EVERY)])
+    return check_resume("[real] -r:", spy, first, float(state.ema_loss))
+
+
+def real_data_path() -> dict:
+    os.chdir(ROOT)  # the fixture's DATASET and frame paths are relative to the repo root
+    checks = real_data_checks()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        device = real_data_run(tmp, "real_device_dataset", True)
+        resume = real_data_resume(device)
+        host = real_data_run(tmp, "real_host_fed", False)
+    gap = host["rate"]["ms_per_step"] / device["rate"]["ms_per_step"] - 1
+    log(f"[real] host-fed {host['rate']['ms_per_step']:.4f} ms/step vs device table "
+        f"{device['rate']['ms_per_step']:.4f} ms/step: host-fed {gap:.1%} slower with real "
+        f"JPEG decode")
+    launches = {path: device["launches"].get((path, "bfloat16"), 0)
+                + host["launches"].get((path, "bfloat16"), 0) for path in ("identity", "banded")}
+    return {"launches": launches, **checks, "resume": resume, "host_fed_gap": gap,
+            "modes": {name: {"ms_per_step": m["rate"]["ms_per_step"],
+                             "frames_per_s": m["rate"]["frames_per_s"],
+                             "ema_loss": m["ema_loss"], "logged": m["losses"]}
+                      for name, m in (("device_dataset", device), ("host_fed", host))}}
+
+
 def main() -> None:
     environment()
     build()
     rows = kernel_vs_plain()
     serve = serving_path()
     train = train_path()
+    real = real_data_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -851,9 +1031,11 @@ def main() -> None:
             "route": "cuda",
             "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
-            "launches": serve["launches"][path] + train["launches"][path],
+            "launches": (serve["launches"][path] + train["launches"][path]
+                         + real["launches"][path]),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
+            "launches_real_data": real["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -864,6 +1046,7 @@ def main() -> None:
         })
     log(json.dumps({"serve": serve}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"real_data": real}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from video_dqn_tpu_torch.models.bridge import qnet_state_dict_from_flax
 from video_dqn_tpu_torch.models.qnet import HabitatDQN, head_hw
 from tests.test_models import randomize
 from tests.torch_ref import TorchHabitatDQN
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 # (extra_capacity, panorama, image size): 128 px gives a 2x2 head map
 CASES = [(True, False, 128), (True, True, 128), (False, False, 64)]

@@ -30,6 +30,7 @@ from video_dqn_tpu_torch.models.bridge import (adam_from_optax, adam_to_optax,
 from video_dqn_tpu_torch.train.dqn import (create_train_state, flax_state_dict,
                                            load_flax_state_dict, make_train_step, run_train)
 from tests.test_torch_train import SIZE, configs, randomize_tree, synthetic_batch, torch_batch
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 STEP = 7
 

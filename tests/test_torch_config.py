@@ -11,6 +11,7 @@ from video_dqn_tpu.core import get_cfg_defaults as jax_cfg_defaults
 from video_dqn_tpu_torch.core.config import ConfigError, load_yaml
 from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
 from video_dqn_tpu_torch.core.experiment import ExperimentConfig
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 EXPERIMENTS = sorted(glob.glob("configs/experiments/*/config.yml"))
 

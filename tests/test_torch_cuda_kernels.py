@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from video_dqn_tpu_torch.ops import resize_normalize as rn
+# pytest puts tests/ on the path; `from tests import` could find another
+# installed `tests` package on the card's machine
+import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ATOL = 1e-5  # float32 sums of <= 255-scale values in another order
 BF16_RTOL = 2.0 ** -8  # half a bf16 ulp, relative

@@ -18,6 +18,9 @@ from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.train.dqn import create_train_state, flax_state_dict, make_train_step
+# pytest puts tests/ on the path; `from tests import` could find another
+# installed `tests` package on the card's machine
+import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ATOL = 1e-4  # float32 sums in another order on the two devices
 # An element whose gradient lies below the float32 noise of its sum can

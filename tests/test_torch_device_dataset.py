@@ -15,6 +15,7 @@ from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.data.device_dataset import TABLE_KEYS, DeviceDataset
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.train.dqn import run_train
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 SIZE, BATCH = 64, 8
 
@@ -175,8 +176,10 @@ def test_run_train_checkpoints_and_resumes(tmp_path, device_dataset):
 
 
 def test_run_train_needs_a_batcher_and_refuses_unported_keys(tmp_path):
+    """Without a batcher run_train reads the config's DATASET, which must
+    exist (the default 'none' does not)."""
     folder = write_config(tmp_path / "exp", False)
-    with pytest.raises(NotImplementedError, match="feather"):
+    with pytest.raises(FileNotFoundError, match="none"):
         run_train(ExperimentConfig(folder), device="cpu")
     with open(f"{folder}/config.yml", "a") as f:
         f.write("  DECODE_WORKERS: 2\n  MESH_MODEL: 2\n")

@@ -18,6 +18,8 @@ from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.scorer import make_model_scorer, make_multiclass_scorer
 from video_dqn_tpu_torch.models.qnet import HabitatDQN, build_qnet
 from video_dqn_tpu_torch.train.dqn import create_train_state, run_train
+from video_dqn_tpu_torch.train_q_network import main as train_cli
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "video_dqn_tpu_torch"
@@ -29,7 +31,8 @@ FORBIDDEN = re.compile(
 
 def test_every_module_imports_with_jax_blocked():
     for name in ("eval.scorer", "train.dqn", "data.device_dataset", "core.msgpack",
-                 "core.checkpoint", "core.prefetch"):
+                 "core.checkpoint", "core.prefetch", "data.feather", "data.jpeg",
+                 "data.qlearning", "data.schema", "train_q_network"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -46,7 +49,9 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_sources_name_no_jax():
-    files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), ROOT / "chip_smoke.py"]
+    files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cc"),
+             ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py"]
+    assert any(f.suffix == ".cc" for f in files)
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -74,8 +79,11 @@ TABLES = synthetic_video_tables(4, 4, 8)
     lambda: create_train_state(TRAIN_CFG),
     lambda: DeviceDataset(TABLES, 2),
     lambda: run_train(TRAIN_CFG, batcher=object()),
+    lambda: run_train(TRAIN_CFG),
+    lambda: train_cli(["no_such_folder"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
-        "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train"])
+        "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
+        "run_train_from_config", "train_q_network_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -12,6 +12,7 @@ from video_dqn_tpu.ops import image as jax_image
 from video_dqn_tpu.ops import pallas_image as jax_pallas
 from video_dqn_tpu_torch.ops import image as port_image
 from video_dqn_tpu_torch.ops import resize_normalize as rn
+from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ATOL = 1e-5  # float32 sums of <= 255-scale values in another order
 

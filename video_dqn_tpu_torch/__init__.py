@@ -9,15 +9,19 @@ in channels_last memory format.
 
 Layout:
   _device.py  resolve_device: CUDA unless the caller asks for the CPU
-  _build.py   nvcc build of csrc/ into a shared library, loaded by ctypes
-  csrc/       hand-written CUDA kernels for sm_90a
+  _build.py   builds of csrc/ (nvcc) and csrc/host/ (c++) into shared
+              libraries, loaded by ctypes
+  csrc/       hand-written CUDA kernels for sm_90a; csrc/host/ the host
+              library: the baseline JPEG decoder and the LZ4 frame decoder
   ops/        ImageNet normalize; the fused uint8 resize+normalize kernel
   models/     ResNet18, the HabitatDQN Q-net, the weight and Adam-state
               bridge to and from the JAX package's Flax layout
   core/       config trees and the YAML subset, experiment folders,
               metrics.jsonl, sample<N>.ckpt in Flax's msgpack, host prefetch
-  data/       the device-resident dataset and its host twin
+  data/       the feather (Arrow IPC) reader, the JPEG stage, the
+              QLearningBatcher, the device-resident dataset and its host twin
   train/      the double-DQN train step and run_train
+  train_q_network.py  the training CLI
   eval/       panorama scorers and the eval model loader
 """
 

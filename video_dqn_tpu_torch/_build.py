@@ -1,36 +1,36 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-Every csrc/*.cu is compiled by nvcc for sm_90a into one shared library
-with a plain C interface, _build/libvdqn_kernels.so, at first use and
-from the sources in the package only; ctypes loads it. A failed build or
-load raises: there is no fallback.
+Two shared libraries with plain C interfaces, each built at first use from
+the sources in the package only, into _build/, and loaded with ctypes:
+  * the CUDA kernels: every csrc/*.cu, compiled by nvcc for sm_90a into
+    _build/libvdqn_kernels.so (`build`, `load`);
+  * the host library: every csrc/host/*.cc (the JPEG decode stage and the
+    LZ4 frame decoder), compiled by the system C++ compiler into
+    _build/libvdqn_host.so (`build_host`, `load_host`).
+Each is rebuilt when it is older than one of its sources. A file lock
+keeps two processes from building the same library at once, and each
+build writes a temporary file of its own that replaces the library in one
+rename. A failed build or load raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable, Dict, List, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-LIB = BUILD_DIR / "libvdqn_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-_lock = threading.Lock()
-
-# Each kernel entry takes one pointer to its argument struct
-# (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`).
-_SIGNATURES = {
-    "vdqn_resize_normalize_identity": [ctypes.c_void_p],
-    "vdqn_resize_normalize_banded": [ctypes.c_void_p],
-}
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -41,44 +41,100 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _cxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX", "c++"))
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (c++) found: the host library cannot be built")
+    return cxx
+
+
+@dataclass
+class _Library:
+    path: Path
+    source_dir: Path
+    patterns: Tuple[str, ...]  # sources first, then the headers they include
+    command: Callable[[Path, List[Path]], List[str]]
+    # C entry -> (argtypes, restype)
+    signatures: Dict[str, Tuple[list, type]]
+    handle: object = field(default=None, repr=False)
+    lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def sources(self) -> List[Path]:
+        return sorted(self.source_dir.glob(self.patterns[0]))
+
+    def stale(self) -> bool:
+        if not self.path.exists():
+            return True
+        newest = max(p.stat().st_mtime for pattern in self.patterns
+                     for p in self.source_dir.glob(pattern))
+        return self.path.stat().st_mtime < newest
+
+    def build(self) -> str:
+        """Compile the sources into the library and return the compiler's
+        output. Raises on failure."""
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.run(self.command(tmp, self.sources()), capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"building {self.path.name} failed with code "
+                               f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, self.path)
+        return proc.stdout + proc.stderr
+
+    def load(self) -> ctypes.CDLL:
+        """The library, built first if it is missing or older than a
+        source."""
+        with self.lock:
+            if self.handle is None:
+                BUILD_DIR.mkdir(exist_ok=True)
+                with open(BUILD_DIR / f"{self.path.name}.lock", "w") as lock_file:
+                    fcntl.flock(lock_file, fcntl.LOCK_EX)
+                    if self.stale():
+                        self.build()
+                    lib = ctypes.CDLL(str(self.path))
+                for name, (argtypes, restype) in self.signatures.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                self.handle = lib
+        return self.handle
+
+
+# Each kernel entry takes one pointer to its argument struct
+# (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`).
+KERNELS = _Library(
+    BUILD_DIR / "libvdqn_kernels.so", CSRC, ("*.cu", "*.cuh"),
+    lambda out, srcs: [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)],
+    {"vdqn_resize_normalize_identity": ([ctypes.c_void_p], ctypes.c_int),
+     "vdqn_resize_normalize_banded": ([ctypes.c_void_p], ctypes.c_int)})
+HOST = _Library(
+    BUILD_DIR / "libvdqn_host.so", CSRC / "host", ("*.cc", "*.h"),
+    lambda out, srcs: [_cxx(), *CXX_FLAGS, "-o", str(out), *map(str, srcs)],
+    {"vdqn_jpeg_decode_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
+     "vdqn_lz4_frame_decode": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                ctypes.c_int64], ctypes.c_int64)})
+LIB = KERNELS.path
+HOST_LIB = HOST.path
 
 
 def build() -> str:
-    """Compile csrc/*.cu into LIB and return the compiler's output (the
-    ptxas register and shared-memory lines). Raises on failure."""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = LIB.with_name(f"{LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB)
-    return proc.stdout + proc.stderr
-
-
-def _stale() -> bool:
-    if not LIB.exists():
-        return True
-    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
-    return LIB.stat().st_mtime < newest
+    """Compile csrc/*.cu into LIB and return nvcc's output (the ptxas
+    register and shared-memory lines). Raises on failure."""
+    return KERNELS.build()
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or older than a
-    source."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            if _stale():
-                build()
-            lib = ctypes.CDLL(str(LIB))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    """The kernel library, built first if it is missing or stale."""
+    return KERNELS.load()
+
+
+def build_host() -> str:
+    """Compile csrc/host/*.cc into HOST_LIB. Raises on failure."""
+    return HOST.build()
+
+
+def load_host() -> ctypes.CDLL:
+    """The host library, built first if it is missing or stale."""
+    return HOST.load()

@@ -6,6 +6,8 @@ does not have; `load_yaml` reads the subset that configs/experiments/*/
 config.yml and yaml.safe_dump of a flat config use, and resolves each
 scalar as PyYAML's YAML 1.1 resolver does (so `1e-4`, which has no dot,
 stays a string there and here). It raises on anything outside the subset.
+`dump_yaml` writes a config tree as yaml.safe_dump(tree, sort_keys=True)
+does (ConfigNode.dump, the text of an experiment's `log`).
 """
 
 from __future__ import annotations
@@ -70,6 +72,9 @@ class ConfigNode:
     def to_dict(self) -> Dict[str, Any]:
         return {k: (v.to_dict() if isinstance(v, ConfigNode) else v)
                 for k, v in self._fields.items()}
+
+    def dump(self) -> str:
+        return dump_yaml(self.to_dict())
 
     def merge_from_dict(self, other: Dict[str, Any], _path: str = "") -> None:
         if self._frozen:
@@ -214,3 +219,68 @@ def load_yaml(text: str) -> Dict[str, Any]:
     if end < len(lines):
         raise ValueError(f"line {lines[end][0]}: indented less than the first key")
     return tree
+
+
+_TIMESTAMP = re.compile(r"[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}"
+                        r"(?:(?:[Tt]|[ \t]+)[0-9]{1,2}:[0-9]{2}:[0-9]{2}(?:\.[0-9]*)?"
+                        r"(?:[ \t]*(?:Z|[-+][0-9]{1,2}(?::[0-9]{2})?))?)?")
+
+
+def _plain_allowed(text: str) -> bool:
+    """Whether PyYAML's emitter writes `text` as a plain block scalar:
+    no indicator where it would start a token, no leading or trailing
+    space, and a plain reading that resolves back to a string."""
+    if text.startswith(("---", "...")) or text != text.strip(" "):
+        return False
+    if text[0] in "#,[]{}&*!|>'\"%@`":
+        return False
+    if text[0] in "?:-" and (len(text) == 1 or text[1] == " "):
+        return False
+    if ": " in text or text.endswith(":") or " #" in text:
+        return False
+    if text in ("=", "<<") or _TIMESTAMP.fullmatch(text):
+        return False
+    try:
+        return isinstance(_scalar(text, "dump"), str)
+    except ValueError:
+        return False
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if isinstance(value, str):
+        if any(not " " <= ch <= "~" for ch in value):
+            # PyYAML escapes such characters in a double-quoted scalar;
+            # JSON's escapes are valid YAML there, if not always the same text
+            return json.dumps(value)
+        if value and _plain_allowed(value):
+            return value
+        return "'" + value.replace("'", "''") + "'"
+    raise ValueError(f"{value!r} is outside the YAML subset this writer takes")
+
+
+def dump_yaml(tree: Dict[str, Any], indent: str = "") -> str:
+    """`tree` (nested dicts of scalars) as yaml.safe_dump(tree,
+    sort_keys=True) writes it. Plain and quoted strings are not folded at
+    80 columns, as PyYAML folds long ones with spaces."""
+    lines = []
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            lines.append(f"{indent}{key}:\n" + dump_yaml(value, indent + "  ") if value
+                         else f"{indent}{key}: {{}}\n")
+        else:
+            lines.append(f"{indent}{key}: {_dump_scalar(value)}\n")
+    return "".join(lines)

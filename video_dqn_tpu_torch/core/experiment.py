@@ -2,20 +2,27 @@
 an experiment is a folder holding `config.yml`; loading merges it over the
 defaults, validates, freezes and exposes every key as an attribute. Run
 logs go to an auto-incremented `run<N>` subfolder (resume reuses the
-latest), checkpoints to `<folder>/models`."""
+latest; `remove` deletes the old ones first), checkpoints to
+`<folder>/models`, and `write_config_log` writes the resolved config to
+`<folder>/log` with the JAX package's text."""
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 
 from .defaults import VALID_VALUES, get_cfg_defaults
 from .metrics import MetricsWriter
 
 
 class ExperimentConfig:
-    def __init__(self, folder: str, resume: bool = False):
+    def __init__(self, folder: str, remove: bool = False, resume: bool = False):
         self.folder = folder
+        if remove:
+            for f in os.listdir(folder):
+                if re.match(r"^run\d+$", f):
+                    shutil.rmtree(os.path.join(folder, f), ignore_errors=True)
         runs = [int(m.group(1)) for f in os.listdir(folder)
                 if (m := re.match(r"^run(\d+)$", f))]
         run = max(runs, default=0) + (0 if resume else 1)
@@ -32,3 +39,8 @@ class ExperimentConfig:
     @property
     def models_dir(self) -> str:
         return os.path.join(self.folder, "models")
+
+    def write_config_log(self) -> None:
+        """The resolved config, as `<folder>/log`."""
+        with open(os.path.join(self.folder, "log"), "w") as f:
+            f.write(f"Running with config ({self.cfg.dump()})")

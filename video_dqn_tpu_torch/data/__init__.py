@@ -1,2 +1,3 @@
-"""Batch sources of the trainer: the device-resident table and its host
-twin (counterpart of video_dqn_tpu/data)."""
+"""Batch sources of the trainer (counterpart of video_dqn_tpu/data): the
+quadruplet feather's reader and schema, the JPEG stage, QLearningBatcher,
+the device-resident table and its host twin over in-memory tables."""

@@ -37,11 +37,33 @@ def _generator(seed: int, k: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(mixed))
 
 
-class DeviceDataset:
-    # Share of the card's memory the frame table may take: the rest holds
-    # the params, Adam's moments, the target net and a step's activations.
-    MEMORY_BUDGET_FRACTION = 0.6
+# Share of the card's memory the frame table may take: the rest holds the
+# params, Adam's moments, the target net and a step's activations.
+MEMORY_BUDGET_FRACTION = 0.6
 
+
+def device_memory_bytes(device) -> Optional[int]:
+    """The card's memory, or None on the CPU (no capacity limit)."""
+    device = torch.device(device)
+    return torch.cuda.mem_get_info(device)[1] if device.type == "cuda" else None
+
+
+def check_capacity(num_frames: int, image_size: int,
+                   memory_limit_bytes: Optional[int]) -> None:
+    """Raise unless a table of `num_frames` uint8 frames of image_size^2 x
+    3 fits MEMORY_BUDGET_FRACTION of the device's memory; callers check
+    before they decode or upload anything."""
+    nbytes = num_frames * image_size * image_size * 3
+    if memory_limit_bytes is not None and nbytes > MEMORY_BUDGET_FRACTION * memory_limit_bytes:
+        raise ValueError(
+            f"TPU.DEVICE_DATASET: the frame table ({num_frames} unique "
+            f"{image_size}px frames = {nbytes / 1e9:.2f} GB) exceeds "
+            f"{MEMORY_BUDGET_FRACTION:.0%} of the device's memory "
+            f"({memory_limit_bytes / 1e9:.2f} GB). Use the host-fed infeed "
+            f"(TPU.DEVICE_DATASET: false) or a smaller TPU.IMAGE_SIZE.")
+
+
+class DeviceDataset:
     def __init__(self, tables: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
                  sampling: str = "epoch", device=None,
                  memory_limit_bytes: Optional[int] = None):
@@ -61,16 +83,9 @@ class DeviceDataset:
         self.steps_per_epoch = self.n // self.batch_size
 
         # capacity guard, before anything is uploaded
-        if memory_limit_bytes is None and self.device.type == "cuda":
-            memory_limit_bytes = torch.cuda.mem_get_info(self.device)[1]
-        if memory_limit_bytes is not None and \
-                frames.nbytes > self.MEMORY_BUDGET_FRACTION * memory_limit_bytes:
-            raise ValueError(
-                f"TPU.DEVICE_DATASET: the frame table ({len(frames)} unique "
-                f"{frames.shape[1]}px frames = {frames.nbytes / 1e9:.2f} GB) exceeds "
-                f"{self.MEMORY_BUDGET_FRACTION:.0%} of the device's memory "
-                f"({memory_limit_bytes / 1e9:.2f} GB). Use the host-fed infeed "
-                f"(TPU.DEVICE_DATASET: false) or a smaller TPU.IMAGE_SIZE.")
+        if memory_limit_bytes is None:
+            memory_limit_bytes = device_memory_bytes(self.device)
+        check_capacity(len(frames), frames.shape[1], memory_limit_bytes)
 
         self.bytes = frames.nbytes
         self.tables = {k: torch.from_numpy(np.ascontiguousarray(tables[k])).to(self.device)

@@ -1,20 +1,21 @@
-"""A host batch source over numpy tables, the port's stand-in for the JAX
-package's QLearningBatcher until the port has a feather and JPEG reader.
+"""A host batch source over numpy tables that are already in memory, beside
+the feather-and-JPEG source data/qlearning.py `QLearningBatcher`.
 
 `TableSource` holds the tables that DeviceDataset uploads (see
 data/device_dataset.py for their layout) and serves the same batches from
 host memory: `get_batch(rows)` with QLearningBatcher.get_batch's contract
 and `batches(batch_size)` with its shuffled, drop_last stream. run_train
 takes it as its `batcher`. `synthetic_video_tables` makes seeded tables of
-a synthetic video for the smoke run and the card tests."""
+a synthetic video: chip_smoke.py's synthetic training phase and the card
+tests use them."""
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-from .device_dataset import LABEL_KEYS, TABLE_KEYS
+from .device_dataset import LABEL_KEYS, TABLE_KEYS, check_capacity
 
 
 class TableSource:
@@ -26,7 +27,9 @@ class TableSource:
         self.n = len(tables["action"])
         self._rng = np.random.default_rng(seed)
 
-    def tables(self) -> Dict[str, np.ndarray]:
+    def tables(self, memory_limit_bytes: Optional[int] = None) -> Dict[str, np.ndarray]:
+        frames = self._tables["frames"]
+        check_capacity(len(frames), frames.shape[1], memory_limit_bytes)
         return self._tables
 
     def get_batch(self, rows: np.ndarray) -> Dict[str, np.ndarray]:

@@ -42,7 +42,8 @@ import torch
 from .._device import resolve_device
 from ..core.checkpoint import latest_checkpoint_step, restore_checkpoint, save_checkpoint
 from ..core.prefetch import prefetch_to_device
-from ..data.device_dataset import DeviceDataset
+from ..data.device_dataset import DeviceDataset, device_memory_bytes
+from ..data.qlearning import QLearningBatcher
 from ..models.bridge import (adam_from_optax, adam_to_optax, flax_from_qnet_state_dict,
                              layout, load_torch_state_dict, qnet_state_dict_from_flax)
 from ..models.qnet import HabitatDQN, build_qnet, init_qnet
@@ -269,21 +270,37 @@ def _refuse_unported(config) -> None:
             f"{'; '.join(unported)}")
 
 
+def batcher_from_config(config) -> QLearningBatcher:
+    """The JAX package's batcher for a config (video_dqn_tpu/train/dqn.py
+    run_train): the DATASET feather, one-action or inverse-action labels,
+    the reward and value options, PREVIOUS_IMAGES, SEED, TPU.IMAGE_SIZE
+    and TPU.DECODE_CACHE_MB of RAM cache."""
+    cache_mb = int(config.TPU.DECODE_CACHE_MB)
+    batcher = QLearningBatcher(
+        config.DATASET, one_action=True, confidence_reward=config.CONFIDENCE_REWARD,
+        value_learning=config.VALUE_LEARNING, inverse_actions=config.USE_INVERSE_ACTIONS,
+        previous_images=config.PREVIOUS_IMAGES, seed=config.SEED,
+        image_size=int(config.TPU.IMAGE_SIZE),
+        cache_bytes=cache_mb * (1 << 20) if cache_mb > 0 else None)
+    print(f"Load data from {config.DATASET}")
+    print(f"Reward Ratio: {batcher.reward_percentage()}")
+    return batcher
+
+
 def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[int] = None,
               log_every: int = 100, device=None):
     """The training loop. `config` is an ExperimentConfig (.models_dir,
-    .writer and the config keys). `batcher` is required: any object with
-    `batches(batch_size)`, an endless stream of numpy batch dicts with
-    QLearningBatcher.get_batch's contract, and, for TPU.DEVICE_DATASET,
-    `tables()`, the numpy tables of data/device_dataset.py (e.g.
-    data/tables.py `TableSource`). Returns (state, last logged EMA loss)."""
+    .writer and the config keys). Without a `batcher` it reads the config's
+    DATASET feather and its JPEG frames (`batcher_from_config`); a batcher
+    passed in is any object with `batches(batch_size)`, an endless stream
+    of numpy batch dicts with QLearningBatcher.get_batch's contract, and,
+    for TPU.DEVICE_DATASET, `tables(memory_limit_bytes)`, the numpy tables
+    of data/device_dataset.py (e.g. data/tables.py `TableSource`). Returns
+    (state, last logged EMA loss)."""
     device = resolve_device(device)
     _refuse_unported(config)
     if batcher is None:
-        raise NotImplementedError(
-            "run_train needs a batcher: the port has no feather reader and no JPEG "
-            "decoder yet (QLearningBatcher, ROADMAP.md queue 1); pass e.g. a "
-            "video_dqn_tpu_torch.data.tables.TableSource")
+        batcher = batcher_from_config(config)
     batch_size = int(config.TPU.BATCH_SIZE)
     state = create_train_state(config, device)
 
@@ -306,10 +323,13 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
     num_steps = int(max_steps if max_steps is not None else config.NUM_STEPS)
     step_fn = make_train_step(state.model, config)
     if config.TPU.DEVICE_DATASET:
-        dds = DeviceDataset(batcher.tables(), batch_size, seed=int(config.SEED),
+        t0 = time.perf_counter()
+        dds = DeviceDataset(batcher.tables(device_memory_bytes(device)), batch_size,
+                            seed=int(config.SEED),
                             sampling=str(config.TPU.DEVICE_SAMPLING), device=device)
         print(f"Device dataset: {dds.n} rows, {dds.bytes / 1e9:.2f} GB of frames on "
-              f"{device}; one step per dispatch (TPU.SCAN_CHUNK has no counterpart yet)")
+              f"{device}, built in {time.perf_counter() - t0:.2f} s; one step per dispatch "
+              f"(TPU.SCAN_CHUNK has no counterpart yet)")
         batches = dds.batches(state.step)
     else:
         batches = prefetch_to_device(batcher.batches(batch_size), device,
