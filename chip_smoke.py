@@ -50,13 +50,36 @@ prints no result line):
      in both data modes, and resumes with -r from sample20 in device mode:
      the same rows and the same EMA loss. Prints the feather reads, decode
      frames/s, the device table's build time and ms/step per mode;
-  7. a JSON line of every ported kernel, then the result line.
+  7. the inverse model's training path at full width: its CLI
+     (video_dqn_tpu_torch.train_inverse_model.main) trains the published
+     geometry (224 px, B = 128, bf16) for 30 steps, validating every 10
+     over 2 batches, on a pairs npy of 2,048 rows over 512 state folders
+     (links to the committed frames, made at run time), once decoding every
+     batch and once with --cache-images. Every step must launch the
+     identity kernel once with bf16 output and nothing else, every scalar
+     must be finite, sample10/20/30.ckpt must exist, the frozen trunk must
+     be bit-unchanged after 30 Adam steps, bf16 steps must track float32
+     card steps, and float32 card steps at 192 px must match the port's CPU
+     steps within 1e-4. Prints ms/step and pairs/s per mode, a profiled
+     step with its phase split (prologue, trunk, head, backward, Adam) and
+     peak memory;
+  8. the labelling path: phase 7's checkpoint labels wide.feather's 4,096
+     rows through the decode-once TableInverseLabeler in bf16 (rows/s,
+     decode and device time); its labels must equal float32 card labels
+     where the float32 margin is at least 0.05, and float32 card labels the
+     CPU's on data.feather where it is at least 1e-3. Then the
+     process_episodes CLI writes a data.feather from an episode fixture
+     (tests/torch_qdata.py make_episodes) with those labels, which the
+     port's reader and QLearningBatcher read back, its other columns equal
+     to the CPU's;
+  9. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 from concurrent.futures import ThreadPoolExecutor
 import os
@@ -73,14 +96,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_dqn_tpu_torch import _build, train_q_network
+from video_dqn_tpu_torch import _build, process_episodes, train_inverse_model, train_q_network
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
 from video_dqn_tpu_torch.core.config import load_yaml
 from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
 from video_dqn_tpu_torch.core.experiment import ExperimentConfig
 from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
+from video_dqn_tpu_torch.data.episodes import make_inverse_labeler
 from video_dqn_tpu_torch.data.feather import read_feather
+from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
 from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
@@ -89,7 +114,7 @@ from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
 from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.ops import resize_normalize as rn
-from video_dqn_tpu_torch.train import dqn
+from video_dqn_tpu_torch.train import dqn, inverse
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
@@ -1013,6 +1038,347 @@ def real_data_path() -> dict:
                       for name, m in (("device_dataset", device), ("host_fed", host))}}
 
 
+# -- phases 7 and 8: the inverse model ---------------------------------------
+INV_BATCH = 128            # the inverse CLI's default batch
+INV_STEPS, INV_VALIDATE, INV_VAL_BATCHES = 30, 10, 2
+INV_PAIRS, INV_STATES = 2048, 512
+INV_LR = 1e-3
+INV_CPU_SIZE, INV_CPU_BATCH = 192, 8   # the VALID head, small enough for the CPU
+# the float32 card labels against the CPU's and the bf16 ones against the
+# float32 ones, compared where the float32 calibrated margin is this wide
+LABEL_MARGIN, LABEL_BF16_MARGIN = 1e-3, 0.05
+EPISODE_VIDEOS, EPISODE_FRAMES = 8, 64
+
+
+class InverseSpy:
+    """Watches the inverse trainer without changing it: the kernel launches
+    of each step, and the host clock after a synchronize at the steps in
+    `sync_at`."""
+
+    def __init__(self, sync_at=()):
+        self.sync_at = set(sync_at)
+
+    def __enter__(self):
+        self.steps, self.times = [], {}
+        self._saved = inverse.make_inverse_step
+        make = self._saved
+
+        def make_spied(model, dtype=torch.bfloat16):
+            step_fn = make(model, dtype)
+
+            def spied(state, batch, dropout_mask=None, mark=None):
+                before = rn.LAUNCHES.copy()
+                out = step_fn(state, batch, dropout_mask, mark)
+                self.steps.append(dict(rn.LAUNCHES - before))
+                if len(self.steps) in self.sync_at:
+                    torch.cuda.synchronize()
+                    self.times[len(self.steps)] = time.perf_counter()
+                return out
+            return spied
+
+        inverse.make_inverse_step = make_spied
+        return self
+
+    def __exit__(self, *exc):
+        inverse.make_inverse_step = self._saved
+
+
+def inverse_flags(pairs: dict, out_dir: Path, cache: bool) -> list:
+    return ["--train_data", pairs["train"], "--val_data", pairs["val"],
+            "--image_root", pairs["root"], "--image_size", str(IMAGE_SIZE),
+            "--batch_size", str(INV_BATCH), "--num_steps", str(INV_STEPS),
+            "--lr", str(INV_LR), "--seed", str(SEED), "--out_dir", str(out_dir)] \
+        + (["--cache-images"] if cache else [])
+
+
+def inverse_run(tmp: Path, pairs: dict, cache: bool) -> dict:
+    """The CLI in one decode mode: a timing run (no validation, steps 11-30
+    timed between two synchronizes; also the warm-up), then the counted run
+    with validation every INV_VALIDATE steps and the checks."""
+    name = "cached" if cache else "decoding"
+    with InverseSpy(sync_at=(10, INV_STEPS)) as timing:
+        train_inverse_model.main(inverse_flags(pairs, tmp / f"{name}_timing", cache),
+                                 validate_every=10 ** 6, val_batches=0)
+    ms = (timing.times[INV_STEPS] - timing.times[10]) / (INV_STEPS - 10) * 1e3
+
+    out_dir = tmp / name
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with InverseSpy() as spy:
+        state, accuracy = train_inverse_model.main(
+            inverse_flags(pairs, out_dir, cache), validate_every=INV_VALIDATE,
+            val_batches=INV_VAL_BATCHES)
+    wall = time.perf_counter() - t0
+    launches = dict(rn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {("identity", "bfloat16"): 1}
+    if len(spy.steps) != INV_STEPS or any(d != want for d in spy.steps):
+        raise AssertionError(f"inverse {name}: launches per step {spy.steps}, not {want} each")
+    evals = INV_STEPS // INV_VALIDATE * INV_VAL_BATCHES + 10  # validations, the final line's
+    if launches != {("identity", "bfloat16"): INV_STEPS + evals}:
+        raise AssertionError(f"inverse {name}: {launches} in the run, not "
+                             f"{INV_STEPS + evals} bf16 identity launches")
+    scalars = read_metrics(str(out_dir))
+    tags = sorted({r["tag"] for r in scalars})
+    if tags != ["Accuracy/train", "Accuracy/val", "Loss/train", "Loss/val"] or \
+            len(scalars) != 4 * INV_STEPS // INV_VALIDATE or \
+            not all(np.isfinite(r["value"]) for r in scalars):
+        raise AssertionError(f"inverse {name}: scalars {scalars}")
+    names = sorted(p.name for p in out_dir.glob("sample*.ckpt"))
+    if names != sorted(f"sample{k}.ckpt" for k in range(INV_VALIDATE, INV_STEPS + 1,
+                                                         INV_VALIDATE)):
+        raise AssertionError(f"inverse {name}: checkpoints {names}")
+    losses = [round(r["value"], 6) for r in scalars if r["tag"].startswith("Loss")]
+    log(f"[inverse] {name}: {INV_STEPS} steps at B = {INV_BATCH} in {wall:.2f} s (start-up, "
+        f"validation and checkpoints included); launches {launches}; losses (train, val at "
+        f"10/20/30) {losses}; final val accuracy {accuracy:.4f}; peak device memory "
+        f"{peak:.2f} GiB; steady state {ms:.4f} ms/step, {INV_BATCH / ms * 1e3:.1f} pairs/s")
+    return {"state": state, "models_dir": str(out_dir), "launches": launches, "ms_per_step": ms,
+            "pairs_per_s": INV_BATCH / ms * 1e3, "peak_gib": peak, "losses": losses,
+            "final_val_accuracy": accuracy, "wall_s": wall}
+
+
+def inverse_trunk_unchanged(state) -> None:
+    """After 30 Adam steps the card's trunk equals the seeded init bit for bit."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        init = inverse.create_inverse_state(image_size=IMAGE_SIZE, seed=SEED, device="cpu")
+    for (name, a), b in zip(state.model.resnet18.state_dict().items(),
+                            init.model.resnet18.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"the frozen trunk moved: resnet18.{name}")
+
+
+def inverse_batches(pairs: dict, size: int, batch: int, n: int, device) -> list:
+    b = GibsonPairBatcher(pairs["train"], image_root=pairs["root"], image_size=size, seed=SEED)
+    return [inverse.to_device(b.get_batch(batch_size=batch), device) for _ in range(n)]
+
+
+def inverse_bf16_vs_f32(pairs: dict) -> dict:
+    """Three steps at B = 128 from the same seeded state, batches and
+    dropout masks in bf16 and in float32 (no TF32): their losses."""
+    batches = inverse_batches(pairs, IMAGE_SIZE, INV_BATCH, 3, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    masks = [torch.rand((INV_BATCH, 128), device="cuda", generator=g) < 0.5 for _ in batches]
+    out = {}
+    with no_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        for dtype in (torch.bfloat16, torch.float32):
+            state = inverse.create_inverse_state(INV_LR, seed=SEED, image_size=IMAGE_SIZE)
+            step_fn = inverse.make_inverse_step(state.model, dtype)
+            out[dtype] = [float(step_fn(state, b, m)["loss"]) for b, m in zip(batches, masks)]
+    diff = [abs(a - b) for a, b in zip(out[torch.bfloat16], out[torch.float32])]
+    log(f"[inverse] bf16 losses {out[torch.bfloat16]} vs float32 {out[torch.float32]}: "
+        f"abs diff {diff}")
+    for a, b in zip(out[torch.bfloat16], out[torch.float32]):
+        if not abs(a - b) <= BF16_LOSS_RTOL * abs(b) + BF16_LOSS_ATOL:
+            raise AssertionError(f"inverse bf16 loss {a} vs float32 {b}")
+    return {"bf16_losses": out[torch.bfloat16], "f32_losses": out[torch.float32],
+            "abs_diff": diff}
+
+
+def inverse_card_vs_cpu(pairs: dict) -> dict:
+    """Three float32 steps at 192 px (the VALID head), B = 8, the rate
+    decaying after the second, from the same seeded state, batches and
+    dropout masks on the card and on the CPU: losses within CPU_ATOL, the
+    parameters within it but for CPU_BEYOND_MAX values, none beyond
+    CPU_CAP_LR lr."""
+    host = inverse_batches(pairs, INV_CPU_SIZE, INV_CPU_BATCH, 3, "cpu")
+    g = torch.Generator().manual_seed(SEED)
+    masks = [torch.rand((INV_CPU_BATCH, 128), generator=g) < 0.5 for _ in host]
+    results = {}
+    with no_tf32(), contextlib.redirect_stdout(io.StringIO()):
+        for device in ("cuda", "cpu"):
+            state = inverse.create_inverse_state(INV_LR, 0.9, 2, seed=SEED,
+                                                 image_size=INV_CPU_SIZE, device=device)
+            step_fn = inverse.make_inverse_step(state.model, torch.float32)
+            losses = [float(step_fn(state, {k: v.to(device) for k, v in b.items()},
+                                    m.to(device))["loss"]) for b, m in zip(host, masks)]
+            results[device] = losses, inverse.flax_state_dict(state)
+    loss_diff = max(abs(a - b) for a, b in zip(results["cuda"][0], results["cpu"][0]))
+    diffs = [np.abs(a - b) for a, b in zip(_leaves(results["cuda"][1]["params"]),
+                                           _leaves(results["cpu"][1]["params"]))]
+    param_diff = max(float(d.max()) for d in diffs)
+    beyond = sum(int((d > CPU_ATOL).sum()) for d in diffs)
+    size = sum(d.size for d in diffs)
+    cap = CPU_CAP_LR * INV_LR
+    log(f"[inverse] {INV_CPU_SIZE} px float32, card vs cpu: losses {results['cuda'][0]} vs "
+        f"{results['cpu'][0]}; max abs diff loss {loss_diff:.3g}, params {param_diff:.3g} "
+        f"({beyond} of {size} values beyond {CPU_ATOL}; allowed {CPU_BEYOND_MAX}, none "
+        f"beyond {cap:.3g})")
+    if not (loss_diff <= CPU_ATOL and beyond <= CPU_BEYOND_MAX and param_diff <= cap):
+        raise AssertionError(f"inverse card vs cpu: loss {loss_diff}, {beyond} params beyond "
+                             f"{CPU_ATOL}, largest {param_diff}")
+    return {"loss_max_abs_diff": loss_diff, "param_max_abs_diff": param_diff,
+            "params_beyond_1e-4": beyond, "params": size}
+
+
+def phase_split(run, marks_of: list, steps: int = 5) -> dict:
+    """Device ms of each phase of `steps` unsynchronized calls of run(mark),
+    from CUDA events recorded as each phase begins."""
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+    for _ in range(steps):
+        run(mark)
+    mark("done")
+    torch.cuda.synchronize()
+    split = {}
+    for (name, a), (_, b) in zip(marks, marks[1:]):
+        if name in marks_of:
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / steps
+    return split
+
+
+def inverse_breakdown(state, pairs: dict) -> dict:
+    """One bf16 step at B = 128 on cached frames: torch.profiler over 3
+    steps (busy and idle share, top kernels) and the device time of each
+    phase (prologue, trunk, head, loss, backward, Adam) from CUDA events."""
+    batches = inverse_batches(pairs, IMAGE_SIZE, INV_BATCH, 2, "cuda")
+    step_fn = inverse.make_inverse_step(state.model, torch.bfloat16)
+    k = iter(range(10 ** 6))
+    prof = device_profile(lambda: step_fn(state, batches[next(k) % 2]), calls=3)
+    log_profile(f"inverse step, B={INV_BATCH} bf16, batch on the card", prof, top=12)
+    split = phase_split(lambda mark: step_fn(state, batches[next(k) % 2], mark=mark),
+                        inverse.PHASES)
+    total = sum(split.values())
+    log("[profile] inverse step phases (device ms, CUDA events, mean of 5): " + ", ".join(
+        f"{n} {ms:.4f} ({ms / total:.1%})" for n, ms in split.items()) + f"; total {total:.4f}")
+    return {"device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "busy_share": prof["busy_share"], "phases_ms": split}
+
+
+def inverse_path() -> dict:
+    """Phase 7: the inverse CLI at 224 px, B = 128, bf16, 30 steps, with and
+    without the RAM cache of decoded states."""
+    os.chdir(ROOT)
+    t0 = time.perf_counter()
+    train, root = torch_qdata.make_pairs(torch_qdata.PAIRS_ROOT, rows=INV_PAIRS,
+                                         states=INV_STATES, seed=SEED)
+    val, _ = torch_qdata.make_pairs(torch_qdata.PAIRS_ROOT, rows=INV_PAIRS // 4,
+                                    states=INV_STATES, seed=SEED + 1, name="val.npy")
+    pairs = {"train": train, "val": val, "root": root}
+    log(f"[inverse] pairs: {INV_PAIRS} train and {INV_PAIRS // 4} val rows over {INV_STATES} "
+        f"state folders (links to the committed frames), made in "
+        f"{time.perf_counter() - t0:.2f} s; published geometry {IMAGE_SIZE} px, "
+        f"B = {INV_BATCH}, bf16, lr {INV_LR}, {INV_STEPS} steps, validation every "
+        f"{INV_VALIDATE} over {INV_VAL_BATCHES} batches")
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+    decoding = inverse_run(tmp, pairs, cache=False)
+    cached = inverse_run(tmp, pairs, cache=True)
+    for run in (decoding, cached):
+        inverse_trunk_unchanged(run["state"])
+    log("[inverse] the frozen trunk is bit-unchanged after 30 Adam steps in both runs")
+    precision = inverse_bf16_vs_f32(pairs)
+    cpu = inverse_card_vs_cpu(pairs)
+    breakdown = inverse_breakdown(cached["state"], pairs)
+    log(f"[inverse] steady state: decoding {decoding['ms_per_step']:.4f} ms/step "
+        f"({decoding['pairs_per_s']:.1f} pairs/s), cached {cached['ms_per_step']:.4f} ms/step "
+        f"({cached['pairs_per_s']:.1f} pairs/s)")
+    return {"tmp": tmp, "models_dir": cached["models_dir"],
+            "launches": {"identity": decoding["launches"].get(("identity", "bfloat16"), 0)
+                         + cached["launches"].get(("identity", "bfloat16"), 0), "banded": 0},
+            "modes": {name: {k: v for k, v in run.items()
+                             if k not in ("state", "models_dir", "launches")}
+                      for name, run in (("decoding", decoding), ("cached", cached))},
+            "precision": precision, "card_vs_cpu": cpu, "breakdown": breakdown}
+
+
+def margins(logits: np.ndarray) -> np.ndarray:
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def label_path(phase7: dict) -> dict:
+    """Phase 8: phase 7's checkpoint labels wide.feather's 4,096 rows in
+    bf16 (the main path), against float32 card labels; float32 card labels
+    against the CPU's on data.feather; process_episodes' CLI writes a
+    data.feather that the port reads back."""
+    os.chdir(ROOT)
+    torch_qdata.link_wide_frames()
+    wide = read_feather(torch_qdata.WIDE_FEATHER)
+    before, after = list(wide["before_image"]), list(wide["after_image"])
+    model = inverse.load_inverse_checkpoint(phase7["models_dir"], image_size=IMAGE_SIZE).model
+    labeler = make_inverse_labeler(model)
+    labeler.logits_rows(before[:512], after[:512], IMAGE_SIZE)  # warm-up
+    labeler.timing.update(decode_s=0.0, device_s=0.0, rows=0)
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    bf16 = labeler.logits_rows(before, after, IMAGE_SIZE)
+    wall = time.perf_counter() - t0
+    launches = rn.LAUNCHES[("identity", "bfloat16")]
+    if dict(rn.LAUNCHES) != {("identity", "bfloat16"): launches} or launches == 0:
+        raise AssertionError(f"the labeler launched {dict(rn.LAUNCHES)}")
+    timing = dict(labeler.timing)
+    log(f"[label] {torch_qdata.WIDE_FEATHER}: {len(before)} rows labelled in {wall:.3f} s, "
+        f"{len(before) / wall:.1f} rows/s (decode {timing['decode_s']:.3f} s, device "
+        f"{timing['device_s']:.3f} s); {launches} bf16 identity launches; label counts "
+        f"{np.bincount(bf16.argmax(1), minlength=3).tolist()}")
+    with no_tf32():
+        f32 = make_inverse_labeler(model, dtype=torch.float32).logits_rows(before, after,
+                                                                           IMAGE_SIZE)
+    wide_rows = margins(f32) >= LABEL_BF16_MARGIN
+    differ = int((bf16.argmax(1) != f32.argmax(1))[wide_rows].sum())
+    log(f"[label] bf16 vs float32 card labels: {differ} differ of {int(wide_rows.sum())} rows "
+        f"with a float32 margin of at least {LABEL_BF16_MARGIN} ({int((~wide_rows).sum())} "
+        f"rows below it); calibrated logits max abs diff {float(np.abs(bf16 - f32).max()):.3g}")
+    if differ:
+        raise AssertionError(f"{differ} bf16 labels differ from float32 ones")
+
+    data = read_feather(torch_qdata.FEATHER)
+    rows = list(data["before_image"]), list(data["after_image"])
+    with no_tf32():
+        card = make_inverse_labeler(model, dtype=torch.float32).logits_rows(*rows, IMAGE_SIZE)
+    cpu_model = inverse.load_inverse_checkpoint(phase7["models_dir"], image_size=IMAGE_SIZE,
+                                                device="cpu").model
+    cpu = make_inverse_labeler(cpu_model, batch_size=64, dtype=torch.float32,
+                               device="cpu").logits_rows(*rows, IMAGE_SIZE)
+    wide_rows = margins(cpu) >= LABEL_MARGIN
+    differ = int((card.argmax(1) != cpu.argmax(1))[wide_rows].sum())
+    log(f"[label] {torch_qdata.FEATHER}: float32 card vs cpu labels: {differ} differ of "
+        f"{int(wide_rows.sum())} rows with a margin of at least {LABEL_MARGIN} "
+        f"({int((~wide_rows).sum())} below); calibrated logits max abs diff "
+        f"{float(np.abs(card - cpu).max()):.3g}")
+    if differ:
+        raise AssertionError(f"{differ} card labels differ from the CPU's")
+
+    t0 = time.perf_counter()
+    location = torch_qdata.make_episodes(torch_qdata.EPISODES_ROOT, videos=EPISODE_VIDEOS,
+                                         frames=EPISODE_FRAMES, seed=SEED)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_cols = read_feather(process_episodes.main(["--location", location], device="cpu"))
+    rn.LAUNCHES.clear()
+    t1 = time.perf_counter()
+    out = process_episodes.main(["--location", location, "--inverse-ckpt",
+                                 phase7["models_dir"], "--image-size", str(IMAGE_SIZE)])
+    episodes_s = time.perf_counter() - t1
+    episode_launches = rn.LAUNCHES[("identity", "bfloat16")]
+    cols = read_feather(out)
+    if list(cols) != list(cpu_cols) + ["inverse_actions"] or any(
+            cols[k].dtype != v.dtype or not np.array_equal(cols[k], v) for k, v in cpu_cols.items()):
+        raise AssertionError("process_episodes on the card wrote other columns than the CPU")
+    batcher = QLearningBatcher(out, inverse_actions=True, seed=SEED, image_size=IMAGE_SIZE)
+    if not np.array_equal(batcher.action, cols["inverse_actions"].astype(np.int32)) or \
+            episode_launches == 0:
+        raise AssertionError("the written feather's labels do not read back")
+    log(f"[label] process_episodes: {len(cols['before_image'])} rows from {EPISODE_VIDEOS} "
+        f"videos of {EPISODE_FRAMES} frames (fixture made in {t1 - t0:.2f} s) written in "
+        f"{episodes_s:.3f} s with {episode_launches} bf16 identity launches; columns equal to "
+        f"the CPU's but inverse_actions; read back by QLearningBatcher (reward ratio "
+        f"{batcher.reward_percentage():.4f})")
+    shutil.rmtree(phase7["tmp"], ignore_errors=True)
+    return {"launches": {"identity": launches + episode_launches, "banded": 0},
+            "rows_per_s": len(before) / wall, "decode_s": timing["decode_s"],
+            "device_s": timing["device_s"], "wall_s": wall,
+            "bf16_rows_below_margin": int((margins(f32) < LABEL_BF16_MARGIN).sum()),
+            "cpu_rows_below_margin": int((~wide_rows).sum()),
+            "episode_rows": len(cols["before_image"]), "episodes_s": episodes_s}
+
+
 def main() -> None:
     environment()
     build()
@@ -1020,6 +1386,9 @@ def main() -> None:
     serve = serving_path()
     train = train_path()
     real = real_data_path()
+    inv = inverse_path()
+    label = label_path(inv)
+    inv.pop("tmp")
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -1032,10 +1401,13 @@ def main() -> None:
             "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
             "launches": (serve["launches"][path] + train["launches"][path]
-                         + real["launches"][path]),
+                         + real["launches"][path] + inv["launches"][path]
+                         + label["launches"][path]),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
+            "launches_inverse": inv["launches"][path],
+            "launches_label": label["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1047,6 +1419,8 @@ def main() -> None:
     log(json.dumps({"serve": serve}))
     log(json.dumps({"train": train}))
     log(json.dumps({"real_data": real}))
+    log(json.dumps({"inverse": inv}))
+    log(json.dumps({"label": label}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

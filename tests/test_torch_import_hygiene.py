@@ -17,7 +17,12 @@ from video_dqn_tpu_torch.data.tables import synthetic_video_tables
 from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.scorer import make_model_scorer, make_multiclass_scorer
 from video_dqn_tpu_torch.models.qnet import HabitatDQN, build_qnet
+from video_dqn_tpu_torch.data.episodes import make_inverse_labeler
+from video_dqn_tpu_torch.models.inverse import InverseActionModel
+from video_dqn_tpu_torch.process_episodes import main as process_episodes_cli
 from video_dqn_tpu_torch.train.dqn import create_train_state, run_train
+from video_dqn_tpu_torch.train.inverse import create_inverse_state, run_inverse_train
+from video_dqn_tpu_torch.train_inverse_model import main as train_inverse_cli
 from video_dqn_tpu_torch.train_q_network import main as train_cli
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
@@ -32,7 +37,9 @@ FORBIDDEN = re.compile(
 def test_every_module_imports_with_jax_blocked():
     for name in ("eval.scorer", "train.dqn", "data.device_dataset", "core.msgpack",
                  "core.checkpoint", "core.prefetch", "data.feather", "data.jpeg",
-                 "data.qlearning", "data.schema", "train_q_network"):
+                 "data.qlearning", "data.schema", "train_q_network", "models.inverse",
+                 "train.inverse", "data.gibson_pairs", "data.episodes", "data.detect",
+                 "ops.scans", "train_inverse_model", "process_episodes"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -81,9 +88,16 @@ TABLES = synthetic_video_tables(4, 4, 8)
     lambda: run_train(TRAIN_CFG, batcher=object()),
     lambda: run_train(TRAIN_CFG),
     lambda: train_cli(["no_such_folder"]),
+    lambda: create_inverse_state(image_size=64),
+    lambda: run_inverse_train(object(), object(), "no_such_folder"),
+    lambda: train_inverse_cli(["--train_data", "no_such.npy"]),
+    lambda: make_inverse_labeler(InverseActionModel(64)),
+    lambda: process_episodes_cli(["--location", "no_such_folder"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
-        "run_train_from_config", "train_q_network_main"])
+        "run_train_from_config", "train_q_network_main", "create_inverse_state",
+        "run_inverse_train", "train_inverse_model_main", "make_inverse_labeler",
+        "process_episodes_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,5 +1,6 @@
-"""Feather (Arrow IPC file) reader for the Q-learning dataset (counterpart
-of video_dqn_tpu/data/schema.py `read_feather`, a pandas call).
+"""Feather (Arrow IPC file) reader and writer for the Q-learning dataset
+(counterpart of video_dqn_tpu/data/schema.py `read_feather` and
+`write_feather`, pandas calls).
 
 pandas writes Feather V2, which is the Arrow IPC file format
 (https://arrow.apache.org/docs/format/Columnar.html#ipc-file-format):
@@ -18,6 +19,13 @@ concatenated:
 Buffers are uncompressed or LZ4_FRAME-compressed (pandas' default); the
 LZ4 frames are decoded by the port's host library (csrc/host/lz4_frame.cc).
 ZSTD and every other type raise.
+
+`write_feather(columns, path)` writes {column name: numpy array} as one
+uncompressed record batch: int64 and float64 columns as themselves (NaN
+and inf kept as values, no validity bitmaps) and str columns as utf8. Its
+flatbuffers are laid out front to back (`_FlatBufferWriter`), every
+scalar at its natural alignment, so that pyarrow's verifier and pandas
+read the file.
 """
 
 from __future__ import annotations
@@ -232,3 +240,143 @@ def read_feather(path: str) -> Dict[str, np.ndarray]:
             out[name] = np.empty(0, object if kind == "utf8" else
                                  (bool if kind == "bool" else detail))
     return out
+
+
+# -- writer ------------------------------------------------------------------
+# A flatbuffer object to write: ("table", [(slot, struct format or "o" for an
+# offset to another object, value)]), ("string", str), ("tables", [table]) or
+# ("structs", struct format, [tuple]).
+_METADATA_V5 = 4
+_SCHEMA, _BODY_ALIGN = 1, 64
+
+
+def _size(fmt: str) -> int:
+    return 4 if fmt == "o" else struct.calcsize("<" + fmt)
+
+
+class _FlatBufferWriter:
+    """A flatbuffer laid out front to back: the root offset, then every
+    object before the objects it points to, so that each offset (unsigned,
+    forward) is known when its target is written; a table's vtable sits
+    just before the table. Tables start 8-aligned and lay their fields out
+    largest first, each at its own alignment."""
+
+    def __init__(self):
+        self.buf = bytearray(4)
+
+    def _pad(self, align: int, extra: int = 0) -> None:
+        self.buf += bytes(-(len(self.buf) + extra) % align)
+
+    def _link(self, at: int, target: int) -> None:
+        struct.pack_into("<I", self.buf, at, target - at)
+
+    def write(self, obj) -> int:
+        kind = obj[0]
+        if kind == "string":
+            data = obj[1].encode("utf-8")
+            self._pad(4)
+            at = len(self.buf)
+            self.buf += struct.pack("<I", len(data)) + data + b"\0"
+            return at
+        if kind == "structs":
+            _, fmt, items = obj
+            self._pad(8, 4)  # the elements 8-aligned after the length
+            at = len(self.buf)
+            self.buf += struct.pack("<I", len(items))
+            self.buf += b"".join(struct.pack("<" + fmt, *item) for item in items)
+            return at
+        if kind == "tables":
+            items = obj[1]
+            self._pad(4)
+            at = len(self.buf)
+            self.buf += struct.pack("<I", len(items)) + bytes(4 * len(items))
+            for k, item in enumerate(items):
+                self._link(at + 4 + 4 * k, self.write(item))
+            return at
+        fields = obj[1]
+        slots = max((slot for slot, _, _ in fields), default=-1) + 1
+        offsets, end = {}, 4  # the table opens with its vtable's soffset
+        for slot, fmt, _ in sorted(fields, key=lambda f: -_size(f[1])):
+            end += -end % _size(fmt)
+            offsets[slot] = end
+            end += _size(fmt)
+        vsize = 4 + 2 * slots
+        self._pad(8, vsize)
+        vtable = len(self.buf)
+        self.buf += struct.pack(f"<{2 + slots}H", vsize, end,
+                                *(offsets.get(s, 0) for s in range(slots)))
+        at = len(self.buf)
+        body = bytearray(end)
+        struct.pack_into("<i", body, 0, at - vtable)
+        for slot, fmt, value in fields:
+            if fmt != "o":
+                struct.pack_into("<" + fmt, body, offsets[slot], value)
+        self.buf += body
+        for slot, fmt, value in fields:
+            if fmt == "o":
+                self._link(at + offsets[slot], self.write(value))
+        return at
+
+    def finish(self, root) -> bytes:
+        self._link(0, self.write(root))
+        self._pad(8)
+        return bytes(self.buf)
+
+
+def _column_buffers(name: str, values: np.ndarray) -> Tuple[tuple, List[bytes]]:
+    """(the Field's type as (type id, type table), the column's buffers:
+    an empty validity bitmap, then its data)."""
+    if values.dtype.kind in "iu":
+        return (_INT, ("table", [(0, "i", 64), (1, "?", True)])), \
+            [b"", values.astype("<i8").tobytes()]
+    if values.dtype.kind == "f":
+        return (_FLOAT, ("table", [(0, "h", 2)])), [b"", values.astype("<f8").tobytes()]
+    if values.dtype.kind in "OU" and all(isinstance(v, str) for v in values):
+        data = [v.encode("utf-8") for v in values]
+        ends = np.cumsum([0] + [len(d) for d in data], dtype=np.int64)
+        if ends[-1] >= 2 ** 31:
+            raise ValueError(f"feather column {name!r}: over 2 GiB of utf8")
+        return (_UTF8, ("table", [])), [b"", ends.astype("<i4").tobytes(), b"".join(data)]
+    raise TypeError(f"feather column {name!r}: write_feather takes int, float and str "
+                    f"columns, not {values.dtype}")
+
+
+def _encapsulated(header_type: int, header, body_length: int) -> bytes:
+    """A Message flatbuffer after the continuation marker and its length."""
+    fb = _FlatBufferWriter().finish(("table", [(0, "h", _METADATA_V5),
+                                               (1, "B", header_type), (2, "o", header),
+                                               (3, "q", body_length)]))
+    return struct.pack("<Ii", 0xFFFFFFFF, len(fb)) + fb
+
+
+def write_feather(columns: Dict[str, np.ndarray], path: str) -> None:
+    """Write {column name: 1-D numpy array} (equal lengths, in the dict's
+    order) as an uncompressed Arrow IPC file of one record batch."""
+    arrays = {name: np.asarray(v) for name, v in columns.items()}
+    lengths = {len(v) for v in arrays.values()}
+    if len(lengths) > 1:
+        raise ValueError(f"feather columns of different lengths: {sorted(lengths)}")
+    n = lengths.pop() if lengths else 0
+    fields, buffers, body = [], [], bytearray()
+    for name, values in arrays.items():
+        (type_id, type_table), raw = _column_buffers(name, values)
+        fields.append(("table", [(0, "o", ("string", name)), (1, "?", True),
+                                 (2, "B", type_id), (3, "o", type_table),
+                                 (5, "o", ("tables", []))]))
+        for part in raw:
+            buffers.append((len(body), len(part)))
+            body += part + bytes(-len(part) % _BODY_ALIGN)
+    schema = ("table", [(0, "h", 0), (1, "o", ("tables", fields))])
+    batch = ("table", [(0, "q", n), (1, "o", ("structs", "qq", [(n, 0)] * len(fields))),
+                       (2, "o", ("structs", "qq", buffers))])
+    out = bytearray(MAGIC + b"\0\0")
+    out += _encapsulated(_SCHEMA, schema, 0)
+    offset = len(out)
+    meta = _encapsulated(_RECORD_BATCH, batch, len(body))
+    out += meta + body
+    footer = _FlatBufferWriter().finish(("table", [
+        (0, "h", _METADATA_V5), (1, "o", schema), (2, "o", ("structs", "qi4xq", [])),
+        (3, "o", ("structs", "qi4xq", [(offset, len(meta), len(body))]))]))
+    out += footer + struct.pack("<i", len(footer)) + MAGIC
+    with open(path, "wb") as f:
+        f.write(out)

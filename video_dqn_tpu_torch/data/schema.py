@@ -1,6 +1,6 @@
 """The Q-learning quadruplet feather's schema (counterpart of
 video_dqn_tpu/data/schema.py:22-87, over {column name: numpy array} as
-data/feather.py reads it in place of a pandas DataFrame).
+data/feather.py reads and writes it in place of a pandas DataFrame).
 
 Columns: before_image, after_image, ep_id, im_start, im_stop,
 detector_score0..4, sparse_reward0..4, steps_to_reward0..4,
@@ -13,6 +13,8 @@ import re
 from typing import Dict
 
 import numpy as np
+
+from .feather import write_feather  # noqa: F401  (the JAX schema module's writer)
 
 # Per-class detector-confidence thresholds of the 5 sorted COCO classes
 # ['bed', 'chair', 'couch', 'dining table', 'toilet']: the reward contract
@@ -30,6 +32,12 @@ DETECTION_THRESHOLDS = np.array(
 CLASS_LABELS = ["bed", "chair", "couch", "dining table", "toilet"]
 
 WIDE_COLUMNS = ("detector_score", "sparse_reward", "steps_to_reward", "steps_to_reward_neg")
+
+
+def multi_add(cols: Dict[str, np.ndarray], arr: np.ndarray, name: str) -> None:
+    """Spread an (N, C) array into columns name0..name{C-1}, in place."""
+    for c in range(arr.shape[1]):
+        cols[f"{name}{c}"] = arr[:, c]
 
 
 def multi_get(cols: Dict[str, np.ndarray], name: str) -> np.ndarray:

@@ -14,9 +14,17 @@ directions read it:
   * BatchNorm weight/bias <-> scale/bias (params), running stats <->
     mean/var (batch_stats).
 Adam's moments change layout as their parameters do, so optax's
-`{count, mu, nu}` maps onto torch.optim.Adam's per-parameter
+`{count, mu, nu}` maps onto torch.optim.Adam's (or AdamW's) per-parameter
 `step`/`exp_avg`/`exp_avg_sq` through the same table (`adam_to_optax`,
-`adam_from_optax`).
+`adam_from_optax`); `chain_to_optax` and `chain_from_optax` add the links
+of the inverse trainer's chains, optax.adam(schedule) and
+optax.adamw(schedule, wd).
+
+The inverse model (models/inverse.py) has a table of its own
+(`_inverse_entries`): the trunk as `resnet18.{0,1,4,5,6,7}.*` under the
+Flax `resnet`, the head convs, `fc1` with the same (H, W, C) <-> (C, H, W)
+reorder at its map's size, `fc2` and `fc_accuracy`. `entries(model)`
+gives either model's table.
 """
 
 from __future__ import annotations
@@ -26,11 +34,19 @@ from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .inverse import InverseActionModel, head_side
 from .qnet import head_hw
 
 # index of each trunk module in the reference's `features` Sequential
 _FEATURE_INDEX = {"conv1": 0, "bn1": 1, "layer1": 4, "layer2": 5,
                   "layer3": 6, "layer4": 7}
+
+
+def _sequential(name: str) -> str:
+    """A torchvision trunk name (`conv1.weight`, `layer1.0.bn1.bias`) under
+    the trunk's index in a Sequential of torchvision's children."""
+    head, _, rest = name.partition(".")
+    return f"{_FEATURE_INDEX[head]}.{rest}"
 
 
 def _t(a) -> torch.Tensor:
@@ -129,6 +145,28 @@ def _entries(extra_capacity: bool, num_frames: int,
     return out
 
 
+def _inverse_entries(side: int) -> List[_Entry]:
+    """Every tensor of the inverse model once, under its reference name;
+    `side` is the map fc1 flattens (3 at 224 px)."""
+    out = [e._replace(name=f"resnet18.{_sequential(e.name)}", path=("resnet",) + e.path)
+           for e in _trunk()]
+    for conv in ("conv1", "conv2", "conv3"):
+        out += [_Entry("params", f"{conv}.weight", (conv, "kernel"), *_CONV),
+                _Entry("params", f"{conv}.bias", (conv, "bias"), *_VEC)]
+    for dense, maps in (("fc1", _hwc_dense(64, side, side, 1)), ("fc2", _DENSE),
+                        ("fc_accuracy", _DENSE)):
+        out += [_Entry("params", f"{dense}.weight", (dense, "kernel"), *maps),
+                _Entry("params", f"{dense}.bias", (dense, "bias"), *_VEC)]
+    return out
+
+
+def entries(model) -> List[_Entry]:
+    """The table of a port HabitatDQN or InverseActionModel."""
+    if isinstance(model, InverseActionModel):
+        return _inverse_entries(head_side(model.image_size))
+    return _entries(*layout(model))
+
+
 def layout(model) -> Tuple[bool, int, Tuple[int, int]]:
     """(extra_capacity, num_frames, head_hw) of a port HabitatDQN: the
     arguments every conversion here takes."""
@@ -148,14 +186,26 @@ def _put(tree: Dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
+def _from_table(tree: Mapping, collection: str, table: List[_Entry]) -> Dict[str, torch.Tensor]:
+    return {e.name: _t(e.to_torch(np.asarray(_get(tree, e.path))))
+            for e in table if e.collection == collection}
+
+
+def _to_table(named: Mapping[str, torch.Tensor], collection: str, table: List[_Entry]) -> Dict:
+    tree: Dict = {}
+    for e in table:
+        if e.collection == collection:
+            a = named[e.name].detach().to("cpu", torch.float32).numpy()
+            _put(tree, e.path, np.array(e.to_flax(a), order="C"))  # a copy, not a view
+    return tree
+
+
 def from_flax(tree: Mapping, collection: str, extra_capacity: bool, num_frames: int,
               head_hw: Tuple[int, int]) -> Dict[str, torch.Tensor]:
     """A Flax `collection` tree (params-shaped for params and Adam moments,
     or batch_stats) -> {torch name: float32 tensor}, one name per tensor
     (`resnet.*`, no `features.*` aliases)."""
-    return {e.name: _t(e.to_torch(np.asarray(_get(tree, e.path))))
-            for e in _entries(extra_capacity, num_frames, head_hw)
-            if e.collection == collection}
+    return _from_table(tree, collection, _entries(extra_capacity, num_frames, head_hw))
 
 
 def to_flax(named: Mapping[str, torch.Tensor], collection: str, extra_capacity: bool,
@@ -164,12 +214,18 @@ def to_flax(named: Mapping[str, torch.Tensor], collection: str, extra_capacity: 
     gradients or Adam moments) -> the Flax `collection` tree of float32
     numpy arrays, copies of the tensors. Reads the `resnet.*` and head
     names only."""
-    tree: Dict = {}
-    for e in _entries(extra_capacity, num_frames, head_hw):
-        if e.collection == collection:
-            a = named[e.name].detach().to("cpu", torch.float32).numpy()
-            _put(tree, e.path, np.array(e.to_flax(a), order="C"))  # a copy, not a view
-    return tree
+    return _to_table(named, collection, _entries(extra_capacity, num_frames, head_hw))
+
+
+def model_to_flax(named: Mapping[str, torch.Tensor], collection: str, model) -> Dict:
+    """to_flax with `model`'s table (either model)."""
+    return _to_table(named, collection, entries(model))
+
+
+def _with_bn_counters(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(0)
+    return sd
 
 
 def qnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
@@ -180,13 +236,10 @@ def qnet_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     (and the reference's) state dict. `head_hw` is the extra_capacity head
     map: (5, 5) at 224 px, (2, 2) at 128, (1, 1) at 96."""
     geometry = (extra_capacity, num_frames, head_hw)
-    sd = {**from_flax(params, "params", *geometry),
-          **from_flax(batch_stats, "batch_stats", *geometry)}
-    for k in [k for k in sd if k.endswith(".running_var")]:
-        sd[k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(0)
+    sd = _with_bn_counters({**from_flax(params, "params", *geometry),
+                            **from_flax(batch_stats, "batch_stats", *geometry)})
     for k in [k for k in sd if k.startswith("resnet.")]:
-        head, _, rest = k[len("resnet."):].partition(".")
-        sd[f"features.{_FEATURE_INDEX[head]}.{rest}"] = sd[k]
+        sd[f"features.{_sequential(k[len('resnet.'):])}"] = sd[k]
     return sd
 
 
@@ -199,10 +252,26 @@ def flax_from_qnet_state_dict(sd: Mapping[str, torch.Tensor], extra_capacity: bo
     return to_flax(sd, "params", *geometry), to_flax(sd, "batch_stats", *geometry)
 
 
+def inverse_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+                                 image_size: int) -> Dict[str, torch.Tensor]:
+    """Flax InverseActionModel (params, batch_stats), as numpy trees, ->
+    the port's (and the reference's) state dict for `image_size` images."""
+    table = _inverse_entries(head_side(image_size))
+    return _with_bn_counters({**_from_table(params, "params", table),
+                              **_from_table(batch_stats, "batch_stats", table)})
+
+
+def flax_from_inverse_state_dict(sd: Mapping[str, torch.Tensor],
+                                 image_size: int) -> Tuple[Dict, Dict]:
+    """The inverse of inverse_state_dict_from_flax."""
+    table = _inverse_entries(head_side(image_size))
+    return _to_table(sd, "params", table), _to_table(sd, "batch_stats", table)
+
+
 def adam_to_optax(optimizer: torch.optim.Adam, model) -> Dict:
-    """torch.optim.Adam's state over `model`'s parameters -> optax
-    ScaleByAdamState as a Flax state dict: {count (int32), mu, nu}. Before
-    the first step Adam holds no state: count 0, zero moments."""
+    """torch.optim.Adam's (or AdamW's) state over `model`'s parameters ->
+    optax ScaleByAdamState as a Flax state dict: {count (int32), mu, nu}.
+    Before the first step Adam holds no state: count 0, zero moments."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
     counts = {int(s["step"]) for s in states if s}
@@ -211,10 +280,10 @@ def adam_to_optax(optimizer: torch.optim.Adam, model) -> Dict:
     count = counts.pop() if counts else 0
     moments = {}
     for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-        moments[key] = to_flax(
+        moments[key] = model_to_flax(
             {n: s[field] if s else torch.zeros_like(p)
              for (n, p), s in zip(named.items(), states)},
-            "params", *layout(model))
+            "params", model)
     return {"count": np.asarray(count, np.int32), **moments}
 
 
@@ -222,8 +291,8 @@ def adam_from_optax(optimizer: torch.optim.Adam, model, opt_state: Mapping) -> N
     """Load an optax ScaleByAdamState state dict ({count, mu, nu}) into
     torch.optim.Adam's per-parameter state, in place."""
     count = int(np.asarray(opt_state["count"]))
-    mu = from_flax(opt_state["mu"], "params", *layout(model))
-    nu = from_flax(opt_state["nu"], "params", *layout(model))
+    mu = _from_table(opt_state["mu"], "params", entries(model))
+    nu = _from_table(opt_state["nu"], "params", entries(model))
     for name, p in model.named_parameters():
         if mu[name].shape != p.shape:
             raise ValueError(f"Adam moment {name}: {tuple(mu[name].shape)} "
@@ -233,6 +302,35 @@ def adam_from_optax(optimizer: torch.optim.Adam, model, opt_state: Mapping) -> N
             "exp_avg": torch.zeros_like(p).copy_(mu[name]),
             "exp_avg_sq": torch.zeros_like(p).copy_(nu[name]),
         }
+
+
+def chain_to_optax(optimizer: torch.optim.Optimizer, model, schedule_count: int) -> Dict:
+    """The state of optax.adam(schedule), ({count, mu, nu}, {count}), or of
+    optax.adamw(schedule, wd), which adds the empty add_decayed_weights
+    link between them, as Flax serializes the tuple: {"0": ..., "1": ...}.
+    AdamW is the chain with the extra link."""
+    links = [adam_to_optax(optimizer, model)]
+    if isinstance(optimizer, torch.optim.AdamW):
+        links.append({})
+    links.append({"count": np.asarray(schedule_count, np.int32)})
+    return {str(k): link for k, link in enumerate(links)}
+
+
+def chain_from_optax(optimizer: torch.optim.Optimizer, model, opt_state: Mapping) -> None:
+    """Load chain_to_optax's layout into the optimizer, in place. The
+    chain's length must be the optimizer's."""
+    want = 3 if isinstance(optimizer, torch.optim.AdamW) else 2
+    if len(opt_state) != want:
+        raise ValueError(f"an optax chain of {len(opt_state)} links does not fit "
+                         f"{type(optimizer).__name__} ({want} links)")
+    adam_from_optax(optimizer, model, opt_state["0"])
+
+
+def sequential_trunk(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A torchvision-named trunk state dict (`conv1.*`, `layer1.*`, ...)
+    under the indices of the trunk's Sequential (`0.*`, `4.*`, ...), as the
+    inverse model's `resnet18` holds it."""
+    return {_sequential(k): v for k, v in sd.items()}
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

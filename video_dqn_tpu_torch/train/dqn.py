@@ -91,10 +91,14 @@ def load_backbone_weights(config, model: HabitatDQN) -> None:
             print("WARNING: BACKBONE_WEIGHTS is unset: the backbone is random and "
                   "extra_capacity freezes its BatchNorm statistics at their init values.")
         return
-    sd = load_torch_state_dict(path)
-    model.resnet.load_state_dict({k: v for k, v in sd.items() if not k.startswith("fc.")},
-                                 strict=True)
+    model.resnet.load_state_dict(read_backbone(path), strict=True)
     print(f"Backbone initialized from {path}")
+
+
+def read_backbone(path: str) -> Dict[str, torch.Tensor]:
+    """The torchvision resnet18 state dict at `path` without its classifier
+    (`fc.*`): the trunk's weights and statistics under torchvision names."""
+    return {k: v for k, v in load_torch_state_dict(path).items() if not k.startswith("fc.")}
 
 
 def create_train_state(config, device=None) -> TrainState:
