@@ -72,7 +72,26 @@ prints no result line):
      (tests/torch_qdata.py make_episodes) with those labels, which the
      port's reader and QLearningBatcher read back, its other columns equal
      to the CPU's;
-  9. a JSON line of every ported kernel, then the result line.
+  9. evaluation: the host library (csrc/host: the FMM solver and the fake
+     env's raycaster among its sources) built in phase 2; (a) a 12-view
+     224x224 stop of fake-env renders mapped on the card (TF32 on and
+     off) must bin its points as the CPU port does, at most 1e-4 of them
+     in another cell, with the device, copy-back and host ms of a stop's
+     and an agent step's mapping; (b) 4 geodesic-scored episodes at 224 px
+     (make_episode_set) on the card must give the CPU port's step logs and
+     SPL exactly; (c) the evaluate CLI's batched path
+     (video_dqn_tpu_torch.evaluate.main) runs the published Q-net (seed
+     4, a .torch file and an eval config with SCORE: model and SLAM
+     written at run time) over 16 fake-env episodes at 224 px, 8 in
+     flight, pipeline depth 2: every fused score call must launch the
+     identity kernel once with bf16 output, every served score must lie
+     within 0.05 of a float32 card forward of its own views, and the 16
+     SPLs must land on disk. Prints episodes/s, ms per reasoning stop
+     (median and p80) split into render, mapping (device and copy back),
+     traversible, FMM, other host work and the scorer, ms per agent step,
+     peak memory, and the device's idle share over a profiled run of 4
+     episodes;
+  10. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -97,9 +116,11 @@ import torch
 import torch.nn.functional as F
 
 from video_dqn_tpu_torch import _build, process_episodes, train_inverse_model, train_q_network
+from video_dqn_tpu_torch import evaluate as evaluate_cli
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
 from video_dqn_tpu_torch.core.config import load_yaml
 from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
+from video_dqn_tpu_torch.core.disk_logger import DiskReader
 from video_dqn_tpu_torch.core.experiment import ExperimentConfig
 from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
@@ -109,11 +130,22 @@ from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
 from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
+from video_dqn_tpu_torch.eval import batched_runner
+from video_dqn_tpu_torch.eval import evaluate as evaluate_mod
+from video_dqn_tpu_torch.eval.evaluate import make_geodesic_scorer
+from video_dqn_tpu_torch.eval.fixtures import make_episode_set
 from video_dqn_tpu_torch.eval.load import load_eval_model
+from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file, name_from_config
+from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
 from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.ops import resize_normalize as rn
+from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
+from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
+from video_dqn_tpu_torch.plan import mapper as mapper_mod
+from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
+from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
 from video_dqn_tpu_torch.train import dqn, inverse
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
@@ -1379,6 +1411,388 @@ def label_path(phase7: dict) -> dict:
             "episode_rows": len(cols["before_image"]), "episodes_s": episodes_s}
 
 
+# -- phase 9: evaluation ---------------------------------------------------------
+
+# a reasoning stop's views and the fake env's map: int(max(10 m, 2.2 d) *
+# 230) cm at 5 cm a cell, 461 cells a side for goals up to 4.5 m away
+STOP_VIEWS, EVAL_MAP = 12, 461
+CELL_SHARE = 1e-4          # card map delta points in another cell than the CPU's
+GEODESIC_EPISODES = 4
+EVAL_EPISODES, EVAL_IN_FLIGHT, EVAL_PIPELINE = 16, 8, 2
+PROFILED_EPISODES = 4      # the profiled run that gives the device's idle share
+
+
+def fake_env_stop(seed: int) -> tuple:
+    """A reasoning stop's 12 left-turn renders of the fake env at 224 px,
+    in cm and cleaned as the mapper cleans them, and their map poses."""
+    env = FakeNavEnv(image_size=IMAGE_SIZE, seed=seed)
+    pos, ang = env.sample_start_state()
+    env.set_agent_state(pos, ang)
+    depths, locs = [], []
+    for k in range(STOP_VIEWS):
+        obs, _, _, _ = env.step(1)
+        depths.append(obs["depth"][..., 0] * 1000.0)
+        locs.append([EVAL_MAP * 2.5 + 3 * k, EVAL_MAP * 2.5 - 2 * k, env.angle])
+    d = np.stack(depths).astype(np.float32)
+    d[d > 990] = np.nan
+    d[d == 0] = np.nan
+    return d, np.array(locs, np.float32)
+
+
+def map_delta_check() -> dict:
+    """Phase 9 (a): a 12-view stop's map delta on the card against the CPU
+    port, with TF32 on and off, and what a stop's and an agent step's
+    mapping cost: the profiled device ms of its kernels (and the interval
+    between CUDA events around it), the delta's copy to the host, and the
+    mapper's whole add_observations_batch on the host clock."""
+    d, locs = fake_env_stop(SEED)
+    cam = get_camera_matrix(IMAGE_SIZE, IMAGE_SIZE, 90)
+    args = (cam, EVAL_MAP, 125.0, (20.0, 125.0), 5.0, 0.0)
+    want = observations_to_map_delta(torch.from_numpy(d), torch.from_numpy(locs), *args).numpy()
+    valid = int(want.sum())
+    # the poses stay on the host, as the mapper passes them
+    dc, lc = torch.from_numpy(d).cuda(), torch.from_numpy(locs)
+    worst = 0
+    for tf32 in (True, False):
+        with no_tf32():
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            got = observations_to_map_delta(dc, lc, *args).cpu().numpy()
+        apart = int(np.abs(got - want).sum() // 2)
+        log(f"[eval] map delta of a 12-view {IMAGE_SIZE}^2 stop, TF32 {'on' if tf32 else 'off'}: "
+            f"card vs cpu {apart} of {valid} valid points in another cell "
+            f"(allowed {CELL_SHARE:g} of them), totals {int(got.sum())} / {valid}")
+        if valid == 0 or got.sum() != valid or apart > CELL_SHARE * valid:
+            raise AssertionError(f"card map delta: {apart} points moved, totals "
+                                 f"{got.sum()} vs {valid}")
+        worst = max(worst, apart)
+    out = {"valid_points": valid, "points_in_another_cell": worst}
+    for views in (STOP_VIEWS, 1):
+        dv, lv = dc[:views], lc[:views]
+        delta = observations_to_map_delta(dv, lv, *args)
+        prof = device_profile(lambda: observations_to_map_delta(dv, lv, *args), calls=10)
+        log_profile(f"map delta, {views} view(s)", prof, top=6)
+        planner = DepthMapperAndPlanner(map_size_cm=(EVAL_MAP - 1) * 5)
+        planner._reset(1.0, start_pos=np.zeros(3), start_ang=0.0)
+        for _ in range(3):
+            planner.add_observations_batch(d[:views], locs[:views])
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            planner.add_observations_batch(d[:views], locs[:views])
+            host.append((time.perf_counter() - t0) * 1e3)
+        row = {"device_ms": prof["device_ms"], "events_ms": cuda_ms(
+                   lambda: observations_to_map_delta(dv, lv, *args)),
+               "wall_ms": prof["wall_ms"], "busy_share": prof["busy_share"],
+               "kernels_per_call": sum(n for n, _ in prof["by_name"].values()) / 10,
+               "copy_back_ms": cuda_ms(lambda: delta.cpu()),
+               "add_observations_ms": float(np.median(host))}
+        out[f"{views}_views"] = row
+        log(f"[eval] mapping {views} view(s) at {IMAGE_SIZE}^2 into a {EVAL_MAP}^2 x 3 map: "
+            f"device {row['device_ms']:.4f} ms in {row['kernels_per_call']:g} kernels and "
+            f"copies (profiled), {row['events_ms']:.4f} ms between CUDA events, wall "
+            f"{row['wall_ms']:.4f} ms; copy of the {delta.numel() * 4 / 1e6:.2f} MB delta to "
+            f"the host {row['copy_back_ms']:.4f} ms; the mapper's add_observations_batch "
+            f"{row['add_observations_ms']:.4f} ms (host clock, median of 20)")
+    return out
+
+
+def geodesic_run(tmp: Path, device, stop: bool) -> dict:
+    cfg = get_eval_defaults()
+    cfg.SLAM, cfg.SEED, cfg.STOP = True, SEED, stop
+    cfg.RESULT_LOCATION = str(tmp / f"{device}_{stop}")
+    episodes, env_factory, house_factory = make_episode_set(GEODESIC_EPISODES,
+                                                            size=IMAGE_SIZE, seed=SEED)
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_policy(cfg, episodes, env_factory=env_factory, house_factory=house_factory,
+                   scorer_factory=lambda env, ci: make_geodesic_scorer(env), device=device)
+    return DiskReader(str(Path(cfg.RESULT_LOCATION) / name_from_config(cfg))).data()
+
+
+def geodesic_check(tmp: Path) -> dict:
+    """Phase 9 (b): 4 geodesic-scored episodes at 224 px on the card and on
+    the CPU: equal step logs (STOP mode) and equal SPL."""
+    t0 = time.perf_counter()
+    logs = {d: geodesic_run(tmp, d, True) for d in ("cuda", "cpu")}
+    spl = {d: geodesic_run(tmp, d, False) for d in ("cuda", "cpu")}
+    steps = 0
+    for k in range(GEODESIC_EPISODES):
+        got, want = logs["cuda"].get(k), logs["cpu"].get(k)
+        if got is None or want is None or len(got) != len(want) or any(
+                not np.array_equal(g[0], w[0]) or list(g[1:]) != list(w[1:])
+                for g, w in zip(got, want)):
+            raise AssertionError(f"geodesic episode {k}: the card's step log differs from the CPU's")
+        steps += len(got)
+    if spl["cuda"] != spl["cpu"] or len(spl["cpu"]) != GEODESIC_EPISODES:
+        raise AssertionError(f"geodesic SPL card {spl['cuda']} vs cpu {spl['cpu']}")
+    seconds = time.perf_counter() - t0
+    log(f"[eval] {GEODESIC_EPISODES} geodesic episodes at {IMAGE_SIZE} px, card vs cpu: "
+        f"{steps} logged steps equal, SPL equal {[round(v, 4) for v in spl['cpu'].values()]} "
+        f"({seconds:.1f} s for the four runs)")
+    return {"logged_steps": steps, "spl": [float(v) for v in spl["cpu"].values()]}
+
+
+class EvalClock:
+    """Host time of one batched eval run, split per reasoning stop and per
+    agent step, without changing what runs. Valid with host_workers 0 (the
+    episodes advance one at a time on this thread): each episode's
+    generator is wrapped, and the planner's, env's and FMM's calls are
+    charged to the episode that runs. A stop runs from log_reasoning to its
+    yield of the views, and from the scores' arrival to its 12th
+    check_movement; the time between is the scorer's. Each fused score call
+    is split evenly among the stops it serves."""
+
+    CATS = ("render", "mapping", "traversible", "fmm")
+
+    def __enter__(self):
+        self.stops, self.calls, self.agent_steps, self.walk = [], [], 0, dict.fromkeys(self.CATS, 0.0)
+        self.walk_s, self.current, self.model = 0.0, None, None
+        self._saved = (batched_runner.episode_generator, evaluate_mod.check_movement,
+                       mapper_mod.fmm_distance, evaluate_cli.make_multiclass_scorer,
+                       {n: getattr(DepthMapperAndPlanner, n) for n in (
+                           "log_reasoning", "add_observations_batch", "get_traversible",
+                           "log_act")},
+                       FakeNavEnv.step)
+        gen_fn, check, fmm_fn, make_scorer, methods, step = self._saved
+        clock = self
+
+        def charge(cat, fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    ep = clock.current
+                    if ep is not None:
+                        (ep["stop"] if ep["stop"] is not None else clock.walk)[cat] += \
+                            time.perf_counter() - t0
+            return timed
+
+        class Timed:
+            def __init__(self, gen):
+                self.gen = gen
+                self.ep = {"stop": None, "open": None, "checks": 0, "pending": False}
+
+            def _advance(self, fn):
+                ep = self.ep
+                t0 = time.perf_counter()
+                clock.current = ep
+                if ep["stop"] is not None:
+                    ep["open"] = t0
+                try:
+                    return fn()
+                finally:
+                    t1 = time.perf_counter()
+                    clock.current = None
+                    inside = 0.0
+                    if ep["stop"] is not None:      # yielded the stop's views
+                        ep["stop"]["wall"] += t1 - ep["open"]
+                        inside = t1 - ep["open"]
+                    clock.walk_s += t1 - t0 - inside - ep.pop("closed", 0.0)
+
+            def __next__(self):
+                return self._advance(lambda: next(self.gen))
+
+            def send(self, value):
+                return self._advance(lambda: self.gen.send(value))
+
+        def gen_timed(*a, **kw):
+            return Timed(gen_fn(*a, **kw))
+
+        def log_reasoning(planner):
+            ep = clock.current
+            ep["stop"] = {"wall": 0.0, **dict.fromkeys(clock.CATS, 0.0)}
+            ep["open"], ep["checks"] = time.perf_counter(), 0
+            return methods["log_reasoning"](planner)
+
+        def check_timed(*a, **kw):
+            out = check(*a, **kw)
+            ep = clock.current
+            ep["checks"] += 1
+            if ep["checks"] == STOP_VIEWS:          # the stop's last check
+                t = time.perf_counter()
+                ep["stop"]["wall"] += t - ep["open"]
+                ep["closed"] = t - ep["open"]
+                clock.stops.append(ep["stop"])
+                ep["stop"] = None
+            return out
+
+        def log_act(planner, *a, **kw):
+            clock.agent_steps += 1
+            return methods["log_act"](planner, *a, **kw)
+
+        def make_scorer_timed(model, **kw):
+            clock.model = model
+            inner = make_scorer(model, **kw)
+
+            def dispatch(images, cls):
+                t0 = time.perf_counter()
+                handle = inner.dispatch(images, cls)
+                views = np.array(images)
+                views = views[:, None] if views.ndim == 4 else views  # (B, F, H, W, 3)
+                return handle, views, np.array(cls), time.perf_counter() - t0
+
+            def gather(handle):
+                h, images, cls, dispatch_s = handle
+                t0 = time.perf_counter()
+                scores = inner.gather(h)
+                clock.calls.append({"views": images, "cls": cls, "scores": scores,
+                                    "dispatch_s": dispatch_s,
+                                    "gather_s": time.perf_counter() - t0})
+                return scores
+
+            scorer = lambda images, cls: gather(dispatch(images, cls))  # noqa: E731
+            scorer.dispatch, scorer.gather = dispatch, gather
+            return scorer
+
+        batched_runner.episode_generator = gen_timed
+        evaluate_mod.check_movement = check_timed
+        mapper_mod.fmm_distance = charge("fmm", fmm_fn)
+        evaluate_cli.make_multiclass_scorer = make_scorer_timed
+        DepthMapperAndPlanner.log_reasoning = log_reasoning
+        DepthMapperAndPlanner.add_observations_batch = charge(
+            "mapping", methods["add_observations_batch"])
+        DepthMapperAndPlanner.get_traversible = charge("traversible", methods["get_traversible"])
+        DepthMapperAndPlanner.log_act = log_act
+        FakeNavEnv.step = charge("render", step)
+        return self
+
+    def __exit__(self, *exc):
+        gen_fn, check, fmm_fn, make_scorer, methods, step = self._saved
+        batched_runner.episode_generator = gen_fn
+        evaluate_mod.check_movement = check
+        mapper_mod.fmm_distance = fmm_fn
+        evaluate_cli.make_multiclass_scorer = make_scorer
+        for name, fn in methods.items():
+            setattr(DepthMapperAndPlanner, name, fn)
+        FakeNavEnv.step = step
+
+    def stop_table(self) -> dict:
+        """ms per stop (median and p80) in total and per part; the scorer's
+        part is its call's dispatch and gather time over the call's stops."""
+        scorer = []
+        for c in self.calls:
+            n = len(c["views"]) // STOP_VIEWS
+            scorer += [(c["dispatch_s"] + c["gather_s"]) / n] * n
+        if len(scorer) != len(self.stops):
+            raise AssertionError(f"{len(self.stops)} stops timed, {len(scorer)} served")
+        parts = {cat: [s[cat] for s in self.stops] for cat in self.CATS}
+        parts["other_host"] = [s["wall"] - sum(s[c] for c in self.CATS) for s in self.stops]
+        parts["scorer"] = scorer
+        parts["total"] = [s["wall"] + x for s, x in zip(self.stops, scorer)]
+        return {k: {"median": float(np.median(v)) * 1e3,
+                    "p80": float(np.percentile(v, 80)) * 1e3} for k, v in parts.items()}
+
+
+def write_eval_config(tmp: Path, ckpt: Path, tag: str) -> str:
+    """An eval config for the published Q-net: SCORE model, SLAM, the
+    model's experiment folder (the published config.yml) and its .torch
+    weights, results under `tmp`."""
+    model_dir = tmp / "model"
+    if not model_dir.exists():
+        model_dir.mkdir()
+        shutil.copy(PUBLISHED_CONFIG, model_dir / "config.yml")
+    path = tmp / f"{tag}.yml"
+    path.write_text("\n".join(_yaml({
+        "SCORE": "model", "SLAM": True, "SEED": SEED,
+        "MODEL_CONFIG_LOCATION": str(model_dir), "PRETRAINED_MODEL_LOCATION": str(ckpt),
+        "RESULT_LOCATION": str(tmp / f"results_{tag}")})) + "\n")
+    return str(path)
+
+
+def eval_cli(config_path: str, episodes: int, in_flight: int) -> float:
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        mean = evaluate_cli.main([config_path, "--workload", str(episodes), "--batched",
+                                  str(in_flight), "--pipeline-depth", str(EVAL_PIPELINE)])
+    if mean is None or not 0.0 <= mean <= 1.0:
+        raise AssertionError(f"evaluate CLI: mean SPL {mean}\n{out.getvalue()[-2000:]}")
+    return mean
+
+
+def eval_path() -> dict:
+    """Phase 9: (a) the map delta, (b) geodesic episodes card vs CPU, (c)
+    the published Q-net through the evaluate CLI's batched path."""
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        out = {"map_delta": map_delta_check(), "geodesic": geodesic_check(tmp)}
+        ckpt = tmp / "qnet.torch"
+        seeded_checkpoint(ckpt, published_config())
+        cfg_path = write_eval_config(tmp, ckpt, "main")
+
+        # the main path: counts from 0, 16 episodes, 8 in flight, 2 cohorts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rn.LAUNCHES.clear()
+        with EvalClock() as clock:
+            t0 = time.perf_counter()
+            mean = eval_cli(cfg_path, EVAL_EPISODES, EVAL_IN_FLIGHT)
+            wall = time.perf_counter() - t0
+        launches = dict(rn.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results = DiskReader(str(tmp / "results_main" / name_from_config(
+            load_file(cfg_path)))).data()
+        n_calls = len(clock.calls)
+        if launches != {("identity", "bfloat16"): n_calls} or n_calls == 0:
+            raise AssertionError(f"{n_calls} score calls launched {launches}, not one bf16 "
+                                 f"identity kernel each")
+        if sorted(results) != list(range(EVAL_EPISODES)) or not all(
+                0.0 <= float(v) <= 1.0 for v in results.values()):
+            raise AssertionError(f"results on disk: {results}")
+
+        # every served request against a float32 card forward of its views
+        diff, views = 0.0, 0
+        for c in clock.calls:
+            if c["scores"].shape != (len(c["views"]),) or not np.all(np.isfinite(c["scores"])):
+                raise AssertionError(f"bad scores {c['scores'].shape} for {len(c['views'])} views")
+            want = fp32_card_scores(clock.model, c["views"], c["cls"])
+            diff = max(diff, float(np.abs(c["scores"] - want).max()))
+            views += len(c["views"])
+        if not diff <= SERVE_ATOL:
+            raise AssertionError(f"served eval scores differ from the fp32 card forward by "
+                                 f"{diff} > {SERVE_ATOL}")
+        stops = clock.stop_table()
+        step_ms = {k: v / max(clock.agent_steps, 1) * 1e3 for k, v in clock.walk.items()}
+        step_ms["total"] = clock.walk_s / max(clock.agent_steps, 1) * 1e3
+        log(f"[eval] evaluate CLI, published Q-net (seed {SEED}) at {IMAGE_SIZE} px: "
+            f"{EVAL_EPISODES} episodes, {EVAL_IN_FLIGHT} in flight, pipeline depth "
+            f"{EVAL_PIPELINE}: {wall:.2f} s, {EVAL_EPISODES / wall:.4f} episodes/s, mean SPL "
+            f"{mean:.4f}; {len(clock.stops)} stops, {clock.agent_steps} agent steps, "
+            f"{n_calls} fused score calls ({views} views), {launches} kernel launches; "
+            f"served bf16 vs card fp32 max abs diff {diff:.4g} (allowed {SERVE_ATOL}); "
+            f"peak device memory {peak:.2f} GiB")
+        log("[eval] ms per reasoning stop (median / p80): " + ", ".join(
+            f"{k} {v['median']:.4f} / {v['p80']:.4f}" for k, v in stops.items()))
+        log("[eval] ms per agent step (host, mean): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in step_ms.items()))
+
+        # the device's idle share over a shorter profiled run of the same path
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        prof_cfg = write_eval_config(tmp, ckpt, "profiled")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eval_cli(prof_cfg, PROFILED_EPISODES, PROFILED_EPISODES)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        device_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        busy = device_s / prof_wall
+        log(f"[eval] profiled run of {PROFILED_EPISODES} episodes ({PROFILED_EPISODES} in "
+            f"flight): wall {prof_wall:.2f} s, device {device_s:.3f} s, busy share {busy:.4f}, "
+            f"idle share {1 - busy:.4f}" if device_s else
+            "[eval] device idle share not measured (the profiler saw no device events)")
+    return {"launches": {"identity": launches[("identity", "bfloat16")], "banded": 0},
+            **out, "episodes": EVAL_EPISODES, "in_flight": EVAL_IN_FLIGHT,
+            "pipeline_depth": EVAL_PIPELINE, "wall_s": wall,
+            "episodes_per_s": EVAL_EPISODES / wall, "mean_spl": mean,
+            "stops": len(clock.stops), "agent_steps": clock.agent_steps,
+            "score_calls": n_calls, "served_vs_fp32_card_max_abs_diff": diff,
+            "ms_per_stop": stops, "ms_per_agent_step": step_ms, "peak_gib": peak,
+            "profiled_busy_share": busy if device_s else None,
+            "profiled_idle_share": 1 - busy if device_s else None}
+
+
 def main() -> None:
     environment()
     build()
@@ -1389,6 +1803,7 @@ def main() -> None:
     inv = inverse_path()
     label = label_path(inv)
     inv.pop("tmp")
+    ev = eval_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -1402,12 +1817,13 @@ def main() -> None:
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
             "launches": (serve["launches"][path] + train["launches"][path]
                          + real["launches"][path] + inv["launches"][path]
-                         + label["launches"][path]),
+                         + label["launches"][path] + ev["launches"][path]),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
             "launches_inverse": inv["launches"][path],
             "launches_label": label["launches"][path],
+            "launches_eval": ev["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1421,6 +1837,7 @@ def main() -> None:
     log(json.dumps({"real_data": real}))
     log(json.dumps({"inverse": inv}))
     log(json.dumps({"label": label}))
+    log(json.dumps({"eval": ev}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,282 @@
+"""The port's evaluation harness against the JAX package's on the same
+fake-env episodes: the sequential runner with the geodesic oracle (equal
+step logs and SPL), result shards read across the packages, run names,
+config loading, the evaluate and results CLIs, and what the port refuses.
+The model-scored batched runs are in tests/test_torch_eval_episode.py."""
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from video_dqn_tpu.core.disk_logger import DiskLogger as JaxDiskLogger
+from video_dqn_tpu.core.disk_logger import DiskReader as JaxDiskReader
+from video_dqn_tpu.eval import get_eval_defaults as jax_eval_defaults
+from video_dqn_tpu.eval import load_file as jax_load_file
+from video_dqn_tpu.eval import make_geodesic_scorer as jax_geodesic
+from video_dqn_tpu.eval import name_from_config as jax_name
+from video_dqn_tpu.eval import run_policy as jax_run_policy
+from video_dqn_tpu.eval.fixtures import make_episode_set as jax_episode_set
+from video_dqn_tpu_torch import evaluate as evaluate_cli
+from video_dqn_tpu_torch import results as results_cli
+from video_dqn_tpu_torch.core.disk_logger import DiskLogger, DiskReader
+from video_dqn_tpu_torch.eval.batched_runner import run_policy_batched
+from video_dqn_tpu_torch.eval.evaluate import make_geodesic_scorer, ours_evaluate
+from video_dqn_tpu_torch.eval.fixtures import make_env_and_episode, make_episode_set
+from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file, name_from_config
+from video_dqn_tpu_torch.eval.runner import build_detector_from_config, run_policy
+from tests.test_batched_eval import SIZE, build_fixtures
+from tests import torch_port_util  # caps torch threads per worker
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native():
+    """The JAX package's native FMM and raycaster, never its fallbacks."""
+    torch_port_util.jax_native_libs()
+
+
+def cfgs(**over):
+    """The same eval config in both packages."""
+    out = []
+    for defaults in (jax_eval_defaults, get_eval_defaults):
+        cfg = defaults()
+        for k, v in over.items():
+            cfg[k] = v
+        out.append(cfg)
+    return out
+
+
+NAMED = [
+    {},
+    {"SCORE": "model", "MODEL_NAME": "vlv", "SLAM": True, "BACKTRACK_REJECTION": True,
+     "CONSISTENCY_WEIGHT": 0.5, "COMBINE_DETECTOR": True, "CONFIDENCE_THRESHOLD": 0.9,
+     "SEED": 2, "STAIRS": True},
+    {"TOTAL_RANDOM": True, "DATASET": "test"},
+    {"HABITAT_POLICY": True, "HABITAT_FRAMES": 5e6, "HABITAT_LOG": True},
+    {"HABITAT_POLICY": True, "HABITAT_CHECKPOINT": 12},
+    {"ACT_ON_Q": True, "MODEL_NAME": "m", "Q_STOCHASTIC": True},
+    {"BEHAVIOR_CLONING": True, "STOP": True, "BEHAVIOR_LOG": True, "BEHAVIOR_REAL": True,
+     "BEHAVIOR_FINETUNE": True, "BEHAVIOR_NONEG": True, "BEHAVIOR_MASK": True},
+    {"BEHAVIOR_CLONING": True, "BEHAVIOR_PANORAMA": True},
+    {"CHASE_DETECTOR": True, "FORWARD_SCORE": True, "PREVIOUS_IMAGES_REPLICATE": True,
+     "PREVIOUS_IMAGES_ROTATE": True, "FORWARD_IMAGES": True, "FORWARD_IMAGE_STEPS": 6,
+     "HALLUCINATE": True, "SINGLE_MODEL_PANORAMA": True, "MODEL_NUMBER": 150000},
+]
+
+
+@pytest.mark.parametrize("over", NAMED, ids=range(len(NAMED)))
+def test_run_names_are_byte_equal(over):
+    want, got = cfgs(**over)
+    assert name_from_config(got).encode() == jax_name(want).encode()
+    assert set(got) == set(want)
+    assert {k: got[k] for k in got if k != "MODEL_CONFIG"} == \
+        {k: want[k] for k in want if k != "MODEL_CONFIG"}
+
+
+def test_load_file_matches_jax(tmp_path):
+    model_dir = tmp_path / "model_exp"
+    model_dir.mkdir()
+    (model_dir / "config.yml").write_text("PANORAMA: False\nGAMMA: 0.9\nTPU:\n  IMAGE_SIZE: 64\n")
+    base = tmp_path / "base.yml"
+    base.write_text("SLAM: True\nSEED: 3\nCONSISTENCY_WEIGHT: 0.25\n")
+    child = tmp_path / "child.yml"
+    child.write_text(f"INHERIT: '{base}'\nSCORE: 'model'\n"
+                     f"MODEL_CONFIG_LOCATION: '{model_dir}'\nSEED: 5\n")
+    want, got = jax_load_file(str(child)), load_file(str(child))
+    assert got.to_dict() == want.to_dict()
+    assert got.SEED == 5 and got.SLAM is True and got.MODEL_CONFIG.TPU.IMAGE_SIZE == 64
+    assert name_from_config(got) == jax_name(want)
+
+
+def test_result_shards_read_across_packages(tmp_path):
+    values = {0: 0.5, 3: np.array([[np.zeros(3), 0.1, 0.25, 1.5, True]], dtype=object)}
+    for writer, reader in ((JaxDiskLogger, DiskReader), (DiskLogger, JaxDiskReader)):
+        folder = tmp_path / writer.__module__
+        log = writer(str(folder))
+        for k, v in values.items():
+            log.write(k, v)
+        writer(str(folder)).write(7, 1.0)  # a second shard
+        got = reader(str(folder)).data()
+        assert set(got) == {0, 3, 7} and got[0] == 0.5
+        assert got[3][0][2] == 0.25
+    (tmp_path / "torn").mkdir()
+    (tmp_path / "torn" / "x.npy").write_bytes(b"not a shard")
+    assert DiskReader(str(tmp_path / "torn")).data() == {}
+
+
+def read_results(cfg, reader):
+    return reader(str(Path(cfg.RESULT_LOCATION) / name_from_config(cfg))).data()
+
+
+def assert_same_logs(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        g, w = np.asarray(got[k], dtype=object), np.asarray(want[k], dtype=object)
+        assert g.shape == w.shape and len(w) > 0
+        for gr, wr in zip(g, w):
+            np.testing.assert_array_equal(gr[0], wr[0])          # position
+            assert list(gr[1:]) == list(wr[1:])                  # rot, travel, dist, first
+
+
+@pytest.mark.parametrize("stop,batched", [(True, True), (False, True), (False, False)],
+                         ids=["step_logs", "spl", "spl_reference_order"])
+def test_sequential_geodesic_runs_match_jax(tmp_path, stop, batched):
+    """BATCHED_REASONING False maps and scores a stop's views one at a time,
+    in the reference's order."""
+    want_cfg, got_cfg = cfgs(SLAM=True, SEED=1, STOP=stop, BATCHED_REASONING=batched)
+    want_cfg.RESULT_LOCATION = str(tmp_path / "jax")
+    got_cfg.RESULT_LOCATION = str(tmp_path / "port")
+    # in STOP mode an episode runs on past its goal to MAX_STEPS: one will do
+    n = 1 if stop else 2
+    want_eps, want_env, want_house = jax_episode_set(n, size=32, seed=4)
+    got_eps, got_env, got_house = make_episode_set(n, size=32, seed=4)
+    for g, w in zip(got_eps, want_eps):
+        assert list(g[:4]) == list(w[:4]) and np.array_equal(g[4], w[4]) and g[5] == w[5]
+    jax_run_policy(want_cfg, want_eps, env_factory=want_env, house_factory=want_house,
+                   scorer_factory=lambda env, ci: jax_geodesic(env), visualize_every=10 ** 9)
+    run_policy(got_cfg, got_eps, env_factory=got_env, house_factory=got_house,
+               scorer_factory=lambda env, ci: make_geodesic_scorer(env), device="cpu")
+    want = read_results(want_cfg, JaxDiskReader)
+    got = read_results(got_cfg, DiskReader)
+    if stop:
+        assert_same_logs(got, want)
+    else:
+        assert got == want and max(got.values()) > 0
+
+
+def port_fresh_env(house, config=None):
+    env, _, _ = make_env_and_episode(size=SIZE)
+    env.goals = []
+    return env
+
+
+def test_batched_gather_watchdog_raises_on_stall(tmp_path):
+    episodes, houses = build_fixtures()
+    _, cfg = cfgs(SLAM=True, SEED=1, RESULT_LOCATION=str(tmp_path))
+    gathers = []
+
+    def gather(handle):
+        gathers.append(1)
+        if len(gathers) > 1:
+            import time
+
+            time.sleep(5.0)  # a stalled device
+        return handle
+
+    stalling = lambda images, cls: gather(np.zeros(len(images)))  # noqa: E731
+    stalling.dispatch = lambda images, cls: np.zeros(len(images))
+    stalling.gather = gather
+    with pytest.raises(RuntimeError, match="stalled past .*resume"):
+        run_policy_batched(cfg, episodes, env_factory=port_fresh_env,
+                           house_factory=lambda name: houses[name], scorer=stalling,
+                           class_index_of=True, max_concurrent=2, gather_timeout=1.0,
+                           debug=True, device="cpu")
+
+
+def load_jax_cli(name):
+    spec = importlib.util.spec_from_file_location(f"jax_{name}_cli", ROOT / "evaluation" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_evaluate_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(ROOT)
+    for tag in ("jax", "port"):
+        (tmp_path / f"{tag}.yml").write_text(
+            f"SLAM: True\nSEED: 1\nSTOP: True\nRESULT_LOCATION: '{tmp_path / tag}'\n")
+    monkeypatch.setattr(sys, "argv", ["run.py", "--fake-env", str(tmp_path / "jax.yml")])
+    load_jax_cli("run").main()
+    evaluate_cli.main(["--fake-env", str(tmp_path / "port.yml")], device="cpu")
+    want_cfg, got_cfg = jax_load_file(str(tmp_path / "jax.yml")), load_file(str(tmp_path / "port.yml"))
+    assert_same_logs(read_results(got_cfg, DiskReader), read_results(want_cfg, JaxDiskReader))
+    capsys.readouterr()
+    # the results CLIs print the same lines over the same shards
+    spl_cfg = tmp_path / "spl.yml"
+    spl_cfg.write_text(f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / 'spl'}'\n")
+    evaluate_cli.main(["--fake-env", str(spl_cfg)], device="cpu")
+    capsys.readouterr()
+    assert results_cli.main([str(spl_cfg)], device="cpu") > 0
+    mine = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["results.py", str(spl_cfg)])
+    load_jax_cli("results").main()
+    assert capsys.readouterr().out == mine
+    assert results_cli.main([str(tmp_path / "spl" / name_from_config(load_file(str(spl_cfg)))),
+                             "--folder"], device="cpu") > 0
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh-env"], "item 6b"), (["--mesh-scene", "x.ply"], "item 6b"),
+    (["--furnished-env"], "item 6b"), (["-v", "--fake-env"], "item 8")])
+def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, flags, match):
+    (tmp_path / "c.yml").write_text(f"RESULT_LOCATION: '{tmp_path}'\n")
+    with pytest.raises(NotImplementedError, match=match):
+        evaluate_cli.main([*flags, str(tmp_path / "c.yml")], device="cpu")
+
+
+@pytest.mark.parametrize("over", [{"SCORE": "detector"}, {"COMBINE_DETECTOR": True},
+                                  {"CHASE_DETECTOR": True}, {"DETECTOR_WEIGHTS": "stub"}],
+                         ids=["score", "combine", "chase", "weights"])
+def test_detector_configs_raise_naming_item_7(over):
+    _, cfg = cfgs(**over)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        build_detector_from_config(cfg)
+    env, house, ep = make_env_and_episode()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ours_evaluate(cfg, env, ep, house, 0, make_geodesic_scorer(env), device="cpu")
+    assert build_detector_from_config(get_eval_defaults()) is None
+
+
+def test_mesh_backends_raise_naming_item_6b():
+    for backend in ("mesh", "furnished"):
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            make_episode_set(1, backend=backend)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = cfgs(RESULT_LOCATION=str(tmp_path))
+    env, house, ep = make_env_and_episode()
+    for call in (lambda: run_policy(cfg, np.array([ep], dtype=object)),
+                 lambda: run_policy_batched(cfg, [ep], None, None, None),
+                 lambda: ours_evaluate(cfg, env, ep, house, 0, make_geodesic_scorer(env)),
+                 lambda: evaluate_cli.main(["--fake-env", "no.yml"]),
+                 lambda: results_cli.main(["no.yml"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_evaluate_cli_model_scored_batched_equals_sequential(tmp_path, monkeypatch, capsys):
+    """The CLI's two model-scored paths over the same generated workload:
+    --batched (fused cross-episode scoring, 2 cohorts) and sequential
+    (a scorer per episode) end with the same SPL."""
+    from video_dqn_tpu_torch.models.qnet import HabitatDQN, init_qnet
+
+    monkeypatch.chdir(tmp_path)  # no evaluation/val_episodes.npy here
+    model_dir = tmp_path / "model"
+    model_dir.mkdir()
+    (model_dir / "config.yml").write_text(
+        "ARCHITECTURE: 'basic'\nPANORAMA: False\nTPU:\n  IMAGE_SIZE: 32\n")
+    model = init_qnet(HabitatDQN(action_dim=3, extra_capacity=False, panorama=False,
+                                 image_size=32), torch.Generator().manual_seed(4))
+    torch.save({"model_state_dict": model.state_dict()}, tmp_path / "qnet.torch")
+    spl = {}
+    for tag, flags in (("batched", ["--batched", "2", "--pipeline-depth", "2"]),
+                       ("sequential", [])):
+        (tmp_path / f"{tag}.yml").write_text(
+            f"SCORE: 'model'\nSLAM: True\nSEED: 1\nMODEL_CONFIG_LOCATION: '{model_dir}'\n"
+            f"PRETRAINED_MODEL_LOCATION: '{tmp_path / 'qnet.torch'}'\n"
+            f"RESULT_LOCATION: '{tmp_path / tag}'\n")
+        evaluate_cli.main([str(tmp_path / f"{tag}.yml"), "--workload", "2", *flags],
+                          device="cpu")
+        cfg = load_file(str(tmp_path / f"{tag}.yml"))
+        spl[tag] = read_results(cfg, DiskReader)
+    assert "running sequentially" not in capsys.readouterr().out
+    assert spl["batched"].keys() == spl["sequential"].keys() == {0, 1}
+    for k in (0, 1):
+        np.testing.assert_allclose(spl["batched"][k], spl["sequential"][k], rtol=0, atol=1e-5)

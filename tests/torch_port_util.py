@@ -6,13 +6,20 @@ Importing it caps torch's intra-op threads at the host's cores over the
 number of pytest-xdist workers, so that the workers of a parallel run do
 not each start a thread per core.
 
+`jax_native_libs` builds and loads the JAX package's native FMM and
+raycaster for the parity tests that compare with them.
+
 `qnet_pair` gives Q-nets with the same seeded weights in the JAX package
 and in video_dqn_tpu_torch: the Flax trees come from the JAX package's
 init_qnet, are filled with seeded numpy values (so that the BatchNorm and
 bias mappings are exercised, not just identity stats), and reach the port
 through its bridge. Only tests compose the two packages."""
 
+import fcntl
 import os
+import subprocess
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -68,3 +75,34 @@ def qnet_pair(extra_capacity, panorama, image_size, action_dim=3, seed=0):
                     panorama=panorama, image_size=image_size)
     pm.load_state_dict(sd, strict=True)
     return jm, params, stats, pm.eval()
+
+
+def jax_native_libs() -> None:
+    """Build the JAX package's native FMM (native/fmm) and raycaster
+    (native/simcore) once, under a lock the test workers share, and load
+    them in this process. The JAX package builds them at first use without
+    a lock and falls back to Python when a load fails, which in a fresh
+    checkout can happen while another worker is still linking: its Python
+    FMM then differs from the native one in the last bits, and the parity
+    tests would compare against the fallback. Raises if a library will not
+    load."""
+    from video_dqn_tpu.ops import fmm
+    from video_dqn_tpu.sim import native_render
+
+    root = Path(__file__).resolve().parents[1]
+    lock_dir = root / "video_dqn_tpu_torch" / "_build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / "jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for sub in ("fmm", "simcore"):
+            subprocess.run(["make", "-s"], cwd=root / "native" / sub, check=True,
+                           capture_output=True)
+    for _ in range(20):  # a worker outside the lock may still be linking
+        if fmm._lib is None:
+            fmm._lib_tried = False
+        if native_render._lib is None:
+            native_render._tried = False
+        if fmm._load_native() is not None and native_render.available():
+            return
+        time.sleep(0.5)
+    raise RuntimeError("the JAX package's native FMM or raycaster did not load")

@@ -4,8 +4,9 @@ Two shared libraries with plain C interfaces, each built at first use from
 the sources in the package only, into _build/, and loaded with ctypes:
   * the CUDA kernels: every csrc/*.cu, compiled by nvcc for sm_90a into
     _build/libvdqn_kernels.so (`build`, `load`);
-  * the host library: every csrc/host/*.cc (the JPEG decode stage and the
-    LZ4 frame decoder), compiled by the system C++ compiler into
+  * the host library: every csrc/host/*.cc (the JPEG decode stage, the
+    LZ4 frame decoder, the FMM solver and the fake env's raycaster),
+    compiled by the system C++ compiler into
     _build/libvdqn_host.so (`build_host`, `load_host`).
 Each is rebuilt when it is older than one of its sources. A file lock
 keeps two processes from building the same library at once, and each
@@ -30,7 +31,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+# -march=native as the JAX package's native/ Makefiles build: with FMA the
+# compiler contracts a*b + c, and the FMM and the raycaster then give the
+# JAX package's bits
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -114,7 +118,18 @@ HOST = _Library(
     {"vdqn_jpeg_decode_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
      "vdqn_lz4_frame_decode": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                                ctypes.c_int64], ctypes.c_int64)})
+                                ctypes.c_int64], ctypes.c_int64),
+     "vdqn_fmm_distance": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], None),
+     "vdqn_fmm_distance_bounded": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                    ctypes.c_double, ctypes.c_void_p], None),
+     "vdqn_render_views": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                            ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                            ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
+                            ctypes.c_void_p], None)})
 LIB = KERNELS.path
 HOST_LIB = HOST.path
 

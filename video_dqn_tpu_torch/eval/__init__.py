@@ -1,1 +1,2 @@
-"""Evaluation side of the port: panorama scorers and the eval model loader."""
+"""Evaluation side of the port: panorama scorers, the eval model loader,
+the episode policy and its runners, fixtures on the fake env, results."""

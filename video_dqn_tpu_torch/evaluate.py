@@ -1,0 +1,170 @@
+"""Evaluation CLI of the port (counterpart of the root evaluation/run.py,
+with the same flags):
+
+    python -m video_dqn_tpu_torch.evaluate <config.yml> [--fake-env]
+        [--workload N [--batched K [--pipeline-depth D] [--host-workers W]
+         [--gather-timeout S] [--progress-every S]]] [-r] [-d] [-s I]
+        [--episodes i,j,...] [-p]
+
+Runs episodes on the card: each reasoning stop's depths map on the card,
+FMM runs in the port's C++, and with SCORE: model the Q-net of
+MODEL_CONFIG_LOCATION scores the views through the resize+normalize
+kernel. Results land in RESULT_LOCATION/<name_from_config> and are printed
+at the end. Without evaluation/val_episodes.npy (it needs the licensed
+Gibson scenes) or with --fake-env, one episode runs on the fake env;
+--workload N generates N fake-env episodes. -p writes a torch.profiler
+trace to RESULT_LOCATION/<name_from_config>_trace.json.
+
+Not ported yet: the mesh backends (--mesh-env, --mesh-scene,
+--furnished-env; ROADMAP.md queue 1, item 6b) and the episode videos of
+-v (item 8); each raises. Unlike the JAX CLI, no episode is visualised
+unless -v is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from ._device import resolve_device
+from .eval.batched_runner import run_policy_batched
+from .eval.fixtures import make_env_and_episode, make_episode_set
+from .eval.policy_config import load_file, name_from_config
+from .eval.results import display_results
+from .eval.runner import load_scoring_model, run_policy
+from .eval.scorer import make_multiclass_scorer
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="simulate policy (PyTorch port)")
+    p.add_argument("-g", "--gpu", default="0", help="ignored (compat)")
+    p.add_argument("-p", "--profile", action="store_true",
+                   help="write a torch.profiler trace of the run")
+    p.add_argument("-d", "--debug", action="store_true",
+                   help="debug mode, no writing to results files")
+    p.add_argument("-s", "--start", default=0, type=int,
+                   help="episode index to start at")
+    p.add_argument("-r", "--resume", action="store_true",
+                   help="skip episodes with results already on disk")
+    p.add_argument("--episodes", dest="episodes_to_run", default=None,
+                   help="comma-separated episode indices")
+    p.add_argument("-v", "--visualize", action="store_true",
+                   help="not ported yet (raises)")
+    p.add_argument("--fake-env", action="store_true",
+                   help="run against the built-in fake environment")
+    p.add_argument("--mesh-env", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--mesh-scene", default=None, help="not ported yet (raises)")
+    p.add_argument("--furnished-env", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--workload", default=None,
+                   help="run N generated episodes (product workload)")
+    p.add_argument("--batched", default=None, type=int, metavar="N",
+                   help="model-scored runs only: keep N episodes in flight "
+                        "with cross-episode fused scoring")
+    p.add_argument("--pipeline-depth", default=1, type=int, metavar="D",
+                   help="with --batched: split the in-flight episodes into D "
+                        "cohorts and overlap one cohort's scoring with the "
+                        "others' host work (results are identical for any D)")
+    p.add_argument("--host-workers", default=0, type=int, metavar="W",
+                   help="with --batched: advance episodes' host work in W "
+                        "threads; results are identical")
+    p.add_argument("--gather-timeout", default=900.0, type=float, metavar="S",
+                   help="with --batched: a score gather blocking past S seconds "
+                        "in steady state raises (the first is exempt); 0 disables")
+    p.add_argument("--progress-every", default=300.0, type=float, metavar="S",
+                   help="with --batched: print done/total, rate and ETA at most "
+                        "every S seconds; 0 disables")
+    p.add_argument("config", help="eval config yml")
+    return p
+
+
+def main(argv: Optional[List[str]] = None, device=None):
+    """Run the evaluation that `argv` (sys.argv when None) asks for on
+    `device` (None: the card; raises without CUDA). Returns the mean SPL
+    of the run's results folder (None when it is empty)."""
+    args = parser().parse_args(argv)
+    device = resolve_device(device)
+    if args.mesh_env or args.mesh_scene or args.furnished_env:
+        raise NotImplementedError(
+            "--mesh-env, --mesh-scene and --furnished-env: the mesh simulators are "
+            "not ported to video_dqn_tpu_torch yet (ROADMAP.md, queue 1, item 6b)")
+    if args.visualize:
+        raise NotImplementedError(
+            "-v: the episode visualisation is not ported to video_dqn_tpu_torch "
+            "yet (ROADMAP.md, queue 1, item 8)")
+
+    config = load_file(args.config)
+
+    episodes = None
+    if os.path.exists("evaluation/val_episodes.npy"):
+        episodes = np.load("evaluation/val_episodes.npy", allow_pickle=True)
+    if episodes is not None and args.episodes_to_run:
+        idx = [int(i) for i in args.episodes_to_run.split(",")]
+        episodes = episodes[idx]
+
+    kwargs = {}
+    if args.workload:
+        size = 48
+        if config.SCORE == "model" and config.MODEL_CONFIG_LOCATION:
+            # render at the model's training resolution
+            size = int(config.MODEL_CONFIG.TPU.IMAGE_SIZE)
+        episodes, env_factory, house_factory = make_episode_set(
+            int(args.workload), size=size, fresh_envs=bool(args.batched))
+        kwargs = {"env_factory": env_factory, "house_factory": house_factory}
+    elif args.fake_env or episodes is None:
+        # no licensed Gibson assets: the full loop on the fake env
+        env, house, ep = make_env_and_episode()
+        episodes = np.array([ep], dtype=object)
+        kwargs = {
+            "env_factory": lambda h, mc, c: make_env_and_episode()[0],
+            "house_factory": lambda name: house,
+        }
+
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+    if args.batched and config.SCORE == "model" and "env_factory" in kwargs:
+        model, mc = load_scoring_model(config, device)
+        scorer = make_multiclass_scorer(model, image_size=int(mc.TPU.IMAGE_SIZE),
+                                        device=device)
+        run_policy_batched(
+            config, episodes,
+            env_factory=lambda h, c: kwargs["env_factory"](h, mc, c),
+            house_factory=kwargs["house_factory"],
+            scorer=scorer, class_index_of=True,
+            max_concurrent=int(args.batched),
+            pipeline_depth=int(args.pipeline_depth),
+            host_workers=int(args.host_workers),
+            resume=args.resume,
+            gather_timeout=float(args.gather_timeout),
+            progress_every=float(args.progress_every),
+            debug=args.debug,
+            device=device,
+        )
+    else:
+        if args.batched:
+            print("--batched needs SCORE: model and a generated-episode "
+                  "mode (--fake-env/--workload); running sequentially")
+        run_policy(config, episodes=episodes, debug=args.debug,
+                   resume=args.resume, start=args.start, device=device, **kwargs)
+    if prof is not None:
+        prof.stop()
+        os.makedirs(config.RESULT_LOCATION, exist_ok=True)
+        path = os.path.join(config.RESULT_LOCATION,
+                            f"{name_from_config(config)}_trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace: {path}")
+
+    return display_results(config)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import copy
 import itertools
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
@@ -42,6 +43,7 @@ import torch
 from .._device import resolve_device
 from ..core.checkpoint import latest_checkpoint_step, restore_checkpoint, save_checkpoint
 from ..core.prefetch import prefetch_to_device
+from ..core.watchdog import StallWatchdog
 from ..data.device_dataset import DeviceDataset, device_memory_bytes
 from ..data.qlearning import QLearningBatcher
 from ..models.bridge import (adam_from_optax, adam_to_optax, flax_from_qnet_state_dict,
@@ -262,7 +264,6 @@ def _refuse_unported(config) -> None:
     tpu = config.TPU
     unported = [name for name, on in (
         ("TPU.DECODE_WORKERS > 0 (decode workers)", int(tpu.DECODE_WORKERS) > 0),
-        ("TPU.STALL_TIMEOUT_S > 0 (the stall watchdog)", float(tpu.STALL_TIMEOUT_S) > 0),
         ("TPU.SHARD_DATASET (the sharded frame table)", bool(tpu.SHARD_DATASET)),
         ("TPU.MESH_DATA / TPU.MESH_MODEL other than -1 or 1 / 1 (a device mesh)",
          int(tpu.MESH_DATA) not in (-1, 1) or int(tpu.MESH_MODEL) != 1),
@@ -272,6 +273,31 @@ def _refuse_unported(config) -> None:
         raise NotImplementedError(
             f"not ported to video_dqn_tpu_torch yet (ROADMAP.md, queue 1): "
             f"{'; '.join(unported)}")
+
+
+def stall_watchdog(config, device: torch.device) -> Optional[StallWatchdog]:
+    """The loop's stall watchdog, as the JAX package arms it: the
+    VDQN_TRAIN_WATCHDOG_S environment variable overrides TPU.STALL_TIMEOUT_S
+    (0 = off); TPU.STALL_FIRST_TIMEOUT_S sets the first deadline, else it is
+    max(timeout, 2700) on the card (the first step's start-up) and the
+    timeout on the CPU. None when off."""
+    wd_env = os.environ.get("VDQN_TRAIN_WATCHDOG_S", "").strip()
+    if wd_env:
+        try:
+            timeout = float(wd_env)
+        except ValueError:
+            raise ValueError(
+                f"VDQN_TRAIN_WATCHDOG_S={wd_env!r} is not a number — set it "
+                "to a timeout in seconds (0 disables the watchdog)"
+            ) from None
+    else:
+        timeout = float(config.TPU.STALL_TIMEOUT_S or 0)
+    if timeout <= 0:
+        return None
+    first = float(config.TPU.STALL_FIRST_TIMEOUT_S or 0)
+    if first <= 0:
+        first = max(timeout, 2700.0) if device.type != "cpu" else timeout
+    return StallWatchdog(timeout, label="train", first_timeout_s=first)
 
 
 def batcher_from_config(config) -> QLearningBatcher:
@@ -300,7 +326,8 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
     of numpy batch dicts with QLearningBatcher.get_batch's contract, and,
     for TPU.DEVICE_DATASET, `tables(memory_limit_bytes)`, the numpy tables
     of data/device_dataset.py (e.g. data/tables.py `TableSource`). Returns
-    (state, last logged EMA loss)."""
+    (state, last logged EMA loss). The loop beats the stall watchdog
+    (`stall_watchdog`) every step."""
     device = resolve_device(device)
     _refuse_unported(config)
     if batcher is None:
@@ -341,11 +368,14 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
 
     sample_number = start_step
     running_loss = None
+    watchdog = stall_watchdog(config, device)
     t0 = time.time()
     try:
         for batch in itertools.islice(batches, max(num_steps - start_step, 0)):
             metrics = step_fn(state, batch)
             sample_number += 1
+            if watchdog is not None:
+                watchdog.beat()
             # the EMA stays on the device; the host reads it only here
             if sample_number % log_every == 0:
                 running_loss = float(metrics["ema_loss"])
@@ -357,5 +387,7 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
             if sample_number % int(config.CHECKPOINT_INTERVAL) == 0:
                 save_checkpoint(config.models_dir, sample_number, flax_state_dict(state))
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         batches.close()
     return state, running_loss
