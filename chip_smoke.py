@@ -91,7 +91,22 @@ prints no result line):
      traversible, FMM, other host work and the scorer, ms per agent step,
      peak memory, and the device's idle share over a profiled run of 4
      episodes;
-  10. a JSON line of every ported kernel, then the result line.
+  10. evaluation on meshes, in the furnished two-floor house
+     (make_furnished_house: rooms, doors, furniture of every target class
+     on both floors, a ramp) through the mesh simulator and the host
+     library's BVH raycaster (csrc/host/mesh.cc): (a) a 12-view 224x224
+     stop rendered by the host library must match the numpy twin
+     (TwinMesh), depth within 1e-4 and RGB within +-1 on more than 99.9% of
+     the pixels, where a pixel on two coplanar faces may show either face;
+     prints the render's ms for 12 views and for one; (b) 2 geodesic-scored
+     episodes at 224 px, one on each floor, mapped on the card must give
+     the CPU port's step logs and SPL exactly; (c) the evaluate CLI's
+     batched path with --furnished-env runs the published Q-net (as in
+     phase 9) over 4 episodes, 4 in flight, pipeline depth 2, with the
+     checks and prints of phase 9 (c) and the idle share of a profiled run
+     of 2 episodes; (d) --mesh-scene on the house written as a PLY file at
+     run time runs one geodesic episode to an SPL on disk;
+  11. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -133,7 +148,7 @@ from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval import batched_runner
 from video_dqn_tpu_torch.eval import evaluate as evaluate_mod
 from video_dqn_tpu_torch.eval.evaluate import make_geodesic_scorer
-from video_dqn_tpu_torch.eval.fixtures import make_episode_set
+from video_dqn_tpu_torch.eval.fixtures import make_episode_set, make_furnished_house
 from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file, name_from_config
 from video_dqn_tpu_torch.eval.runner import run_policy
@@ -145,7 +160,13 @@ from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
 from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
 from video_dqn_tpu_torch.plan import mapper as mapper_mod
 from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
+from video_dqn_tpu_torch.sim import meshgen
 from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
+from video_dqn_tpu_torch.sim.gibson import relevant_locations
+from video_dqn_tpu_torch.sim.mesh_env import MeshNavEnv
+from video_dqn_tpu_torch.sim.mesh_twin import TwinMesh
+from video_dqn_tpu_torch.sim.native_mesh import NativeMesh
+from video_dqn_tpu_torch.sim.ply import write_ply
 from video_dqn_tpu_torch.train import dqn, inverse
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
@@ -1543,6 +1564,9 @@ class EvalClock:
 
     CATS = ("render", "mapping", "traversible", "fmm")
 
+    def __init__(self, env_cls=FakeNavEnv):
+        self.env_cls = env_cls   # whose step (its render among it) is "render"
+
     def __enter__(self):
         self.stops, self.calls, self.agent_steps, self.walk = [], [], 0, dict.fromkeys(self.CATS, 0.0)
         self.walk_s, self.current, self.model = 0.0, None, None
@@ -1551,7 +1575,7 @@ class EvalClock:
                        {n: getattr(DepthMapperAndPlanner, n) for n in (
                            "log_reasoning", "add_observations_batch", "get_traversible",
                            "log_act")},
-                       FakeNavEnv.step)
+                       self.env_cls.step)
         gen_fn, check, fmm_fn, make_scorer, methods, step = self._saved
         clock = self
 
@@ -1653,7 +1677,7 @@ class EvalClock:
             "mapping", methods["add_observations_batch"])
         DepthMapperAndPlanner.get_traversible = charge("traversible", methods["get_traversible"])
         DepthMapperAndPlanner.log_act = log_act
-        FakeNavEnv.step = charge("render", step)
+        self.env_cls.step = charge("render", step)
         return self
 
     def __exit__(self, *exc):
@@ -1664,7 +1688,7 @@ class EvalClock:
         evaluate_cli.make_multiclass_scorer = make_scorer
         for name, fn in methods.items():
             setattr(DepthMapperAndPlanner, name, fn)
-        FakeNavEnv.step = step
+        self.env_cls.step = step
 
     def stop_table(self) -> dict:
         """ms per stop (median and p80) in total and per part; the scorer's
@@ -1699,13 +1723,97 @@ def write_eval_config(tmp: Path, ckpt: Path, tag: str) -> str:
     return str(path)
 
 
-def eval_cli(config_path: str, episodes: int, in_flight: int) -> float:
+def eval_cli(config_path: str, episodes: int, in_flight: int, *flags: str) -> float:
     with contextlib.redirect_stdout(io.StringIO()) as out:
         mean = evaluate_cli.main([config_path, "--workload", str(episodes), "--batched",
-                                  str(in_flight), "--pipeline-depth", str(EVAL_PIPELINE)])
+                                  str(in_flight), "--pipeline-depth", str(EVAL_PIPELINE),
+                                  *flags])
     if mean is None or not 0.0 <= mean <= 1.0:
         raise AssertionError(f"evaluate CLI: mean SPL {mean}\n{out.getvalue()[-2000:]}")
     return mean
+
+
+def scored_cli_run(tmp: Path, ckpt: Path, tag: str, episodes: int, in_flight: int,
+                   profiled: int, *flags: str, env_cls=FakeNavEnv) -> dict:
+    """The published Q-net through the evaluate CLI's batched path
+    (`--workload episodes --batched in_flight` and `flags`), the kernel's
+    counts from 0: one bf16 identity launch per fused score call, every
+    served score within SERVE_ATOL of a float32 card forward of its own
+    views, every SPL on disk; ms per stop and per agent step (EvalClock),
+    episodes/s, peak memory, and the device's idle share over a profiled
+    run of `profiled` episodes."""
+    cfg_path = write_eval_config(tmp, ckpt, tag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rn.LAUNCHES.clear()
+    with EvalClock(env_cls) as clock:
+        t0 = time.perf_counter()
+        mean = eval_cli(cfg_path, episodes, in_flight, *flags)
+        wall = time.perf_counter() - t0
+    launches = dict(rn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    results = DiskReader(str(tmp / f"results_{tag}" / name_from_config(
+        load_file(cfg_path)))).data()
+    n_calls = len(clock.calls)
+    if launches != {("identity", "bfloat16"): n_calls} or n_calls == 0:
+        raise AssertionError(f"{n_calls} score calls launched {launches}, not one bf16 "
+                             f"identity kernel each")
+    if sorted(results) != list(range(episodes)) or not all(
+            0.0 <= float(v) <= 1.0 for v in results.values()):
+        raise AssertionError(f"results on disk: {results}")
+
+    # every served request against a float32 card forward of its views
+    diff, views = 0.0, 0
+    for c in clock.calls:
+        if c["scores"].shape != (len(c["views"]),) or not np.all(np.isfinite(c["scores"])):
+            raise AssertionError(f"bad scores {c['scores'].shape} for {len(c['views'])} views")
+        want = fp32_card_scores(clock.model, c["views"], c["cls"])
+        diff = max(diff, float(np.abs(c["scores"] - want).max()))
+        views += len(c["views"])
+    if not diff <= SERVE_ATOL:
+        raise AssertionError(f"served eval scores differ from the fp32 card forward by "
+                             f"{diff} > {SERVE_ATOL}")
+    stops = clock.stop_table()
+    step_ms = {k: v / max(clock.agent_steps, 1) * 1e3 for k, v in clock.walk.items()}
+    step_ms["total"] = clock.walk_s / max(clock.agent_steps, 1) * 1e3
+    where = " ".join(flags) or "the fake env"
+    log(f"[{tag}] evaluate CLI ({where}), published Q-net (seed {SEED}) at {IMAGE_SIZE} px: "
+        f"{episodes} episodes, {in_flight} in flight, pipeline depth {EVAL_PIPELINE}: "
+        f"{wall:.2f} s, {episodes / wall:.4f} episodes/s, mean SPL {mean:.4f}; "
+        f"{len(clock.stops)} stops, {clock.agent_steps} agent steps, {n_calls} fused score "
+        f"calls ({views} views), {launches} kernel launches; served bf16 vs card fp32 max "
+        f"abs diff {diff:.4g} (allowed {SERVE_ATOL}); peak device memory {peak:.2f} GiB")
+    log(f"[{tag}] ms per reasoning stop (median / p80): " + ", ".join(
+        f"{k} {v['median']:.4f} / {v['p80']:.4f}" for k, v in stops.items()))
+    log(f"[{tag}] ms per agent step (host, mean): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in step_ms.items()))
+
+    # the device's idle share over a shorter profiled run of the same path
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_cfg = write_eval_config(tmp, ckpt, f"{tag}_profiled")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eval_cli(prof_cfg, profiled, profiled, *flags)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    device_s = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+    busy = device_s / prof_wall
+    log(f"[{tag}] profiled run of {profiled} episodes ({profiled} in flight): wall "
+        f"{prof_wall:.2f} s, device {device_s:.3f} s, busy share {busy:.4f}, idle share "
+        f"{1 - busy:.4f}" if device_s else
+        f"[{tag}] device idle share not measured (the profiler saw no device events)")
+    return {"launches": {"identity": launches[("identity", "bfloat16")], "banded": 0},
+            "episodes": episodes, "in_flight": in_flight,
+            "pipeline_depth": EVAL_PIPELINE, "wall_s": wall,
+            "episodes_per_s": episodes / wall, "mean_spl": mean,
+            "stops": len(clock.stops), "agent_steps": clock.agent_steps,
+            "score_calls": n_calls, "served_vs_fp32_card_max_abs_diff": diff,
+            "ms_per_stop": stops, "ms_per_agent_step": step_ms, "peak_gib": peak,
+            "profiled_busy_share": busy if device_s else None,
+            "profiled_idle_share": 1 - busy if device_s else None}
 
 
 def eval_path() -> dict:
@@ -1717,80 +1825,172 @@ def eval_path() -> dict:
         out = {"map_delta": map_delta_check(), "geodesic": geodesic_check(tmp)}
         ckpt = tmp / "qnet.torch"
         seeded_checkpoint(ckpt, published_config())
-        cfg_path = write_eval_config(tmp, ckpt, "main")
-
         # the main path: counts from 0, 16 episodes, 8 in flight, 2 cohorts
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        rn.LAUNCHES.clear()
-        with EvalClock() as clock:
-            t0 = time.perf_counter()
-            mean = eval_cli(cfg_path, EVAL_EPISODES, EVAL_IN_FLIGHT)
-            wall = time.perf_counter() - t0
-        launches = dict(rn.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        results = DiskReader(str(tmp / "results_main" / name_from_config(
-            load_file(cfg_path)))).data()
-        n_calls = len(clock.calls)
-        if launches != {("identity", "bfloat16"): n_calls} or n_calls == 0:
-            raise AssertionError(f"{n_calls} score calls launched {launches}, not one bf16 "
-                                 f"identity kernel each")
-        if sorted(results) != list(range(EVAL_EPISODES)) or not all(
-                0.0 <= float(v) <= 1.0 for v in results.values()):
-            raise AssertionError(f"results on disk: {results}")
+        out.update(scored_cli_run(tmp, ckpt, "eval", EVAL_EPISODES, EVAL_IN_FLIGHT,
+                                  PROFILED_EPISODES))
+    return out
 
-        # every served request against a float32 card forward of its views
-        diff, views = 0.0, 0
-        for c in clock.calls:
-            if c["scores"].shape != (len(c["views"]),) or not np.all(np.isfinite(c["scores"])):
-                raise AssertionError(f"bad scores {c['scores'].shape} for {len(c['views'])} views")
-            want = fp32_card_scores(clock.model, c["views"], c["cls"])
-            diff = max(diff, float(np.abs(c["scores"] - want).max()))
-            views += len(c["views"])
-        if not diff <= SERVE_ATOL:
-            raise AssertionError(f"served eval scores differ from the fp32 card forward by "
-                                 f"{diff} > {SERVE_ATOL}")
-        stops = clock.stop_table()
-        step_ms = {k: v / max(clock.agent_steps, 1) * 1e3 for k, v in clock.walk.items()}
-        step_ms["total"] = clock.walk_s / max(clock.agent_steps, 1) * 1e3
-        log(f"[eval] evaluate CLI, published Q-net (seed {SEED}) at {IMAGE_SIZE} px: "
-            f"{EVAL_EPISODES} episodes, {EVAL_IN_FLIGHT} in flight, pipeline depth "
-            f"{EVAL_PIPELINE}: {wall:.2f} s, {EVAL_EPISODES / wall:.4f} episodes/s, mean SPL "
-            f"{mean:.4f}; {len(clock.stops)} stops, {clock.agent_steps} agent steps, "
-            f"{n_calls} fused score calls ({views} views), {launches} kernel launches; "
-            f"served bf16 vs card fp32 max abs diff {diff:.4g} (allowed {SERVE_ATOL}); "
-            f"peak device memory {peak:.2f} GiB")
-        log("[eval] ms per reasoning stop (median / p80): " + ", ".join(
-            f"{k} {v['median']:.4f} / {v['p80']:.4f}" for k, v in stops.items()))
-        log("[eval] ms per agent step (host, mean): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in step_ms.items()))
 
-        # the device's idle share over a shorter profiled run of the same path
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+# -- phase 10: evaluation on meshes ----------------------------------------------
 
-        prof_cfg = write_eval_config(tmp, ckpt, "profiled")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eval_cli(prof_cfg, PROFILED_EPISODES, PROFILED_EPISODES)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        device_s = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA) / 1e6
-        busy = device_s / prof_wall
-        log(f"[eval] profiled run of {PROFILED_EPISODES} episodes ({PROFILED_EPISODES} in "
-            f"flight): wall {prof_wall:.2f} s, device {device_s:.3f} s, busy share {busy:.4f}, "
-            f"idle share {1 - busy:.4f}" if device_s else
-            "[eval] device idle share not measured (the profiler saw no device events)")
-    return {"launches": {"identity": launches[("identity", "bfloat16")], "banded": 0},
-            **out, "episodes": EVAL_EPISODES, "in_flight": EVAL_IN_FLIGHT,
-            "pipeline_depth": EVAL_PIPELINE, "wall_s": wall,
-            "episodes_per_s": EVAL_EPISODES / wall, "mean_spl": mean,
-            "stops": len(clock.stops), "agent_steps": clock.agent_steps,
-            "score_calls": n_calls, "served_vs_fp32_card_max_abs_diff": diff,
-            "ms_per_stop": stops, "ms_per_agent_step": step_ms, "peak_gib": peak,
-            "profiled_busy_share": busy if device_s else None,
-            "profiled_idle_share": 1 - busy if device_s else None}
+# the host library's render against the numpy twin: float32 against float64
+MESH_DEPTH_ATOL, MESH_RGB_SHARE = 1e-4, 0.999
+# two surfaces this close along a ray are coplanar faces (the furnished
+# house's interior walls end on the perimeter walls and stand on the upper
+# slab): the BVH's order picks the colour there, and either one is right
+MESH_TIE_TOL = 1e-4
+MESH_GEODESIC_EPISODES = ((0, "bed"), (1, "chair"))   # (floor, class): one a floor
+MESH_EPISODES, MESH_IN_FLIGHT, MESH_PROFILED_EPISODES = 4, 4, 2
+
+
+def furnished_stop_poses(env) -> np.ndarray:
+    """The 12 views of a reasoning stop on the ground floor: (x, camera
+    height, z, yaw) after each of 12 left turns."""
+    pos, ang = env.sample_start_state(0)
+    return np.array([[pos[0], pos[1] + env.camera_height, pos[2], ang + k * env.turn]
+                     for k in range(1, STOP_VIEWS + 1)])
+
+
+def mesh_render_check() -> dict:
+    """Phase 10 (a): a 12-view 224x224 stop in the furnished house from the
+    host library against the numpy twin (depth within MESH_DEPTH_ATOL,
+    RGB within +-1 on MESH_RGB_SHARE of the pixels, where a pixel on two
+    coplanar faces may show either), and the render's ms for 12 views and
+    for one, and the house's build."""
+    t0 = time.perf_counter()
+    env, _ = make_furnished_house(size_px=IMAGE_SIZE, seed=SEED)
+    build_s = time.perf_counter() - t0
+    if not isinstance(env.mesh, NativeMesh):
+        raise AssertionError(f"the env renders with {type(env.mesh).__name__}")
+    poses = furnished_stop_poses(env)
+    render = lambda p: env.mesh.render(p, IMAGE_SIZE, env.cam, env.max_depth)  # noqa: E731
+    depth, rgb = render(poses)
+    ms = {}
+    for views, calls in ((STOP_VIEWS, 10), (1, 40)):
+        times = []
+        for _ in range(calls):
+            t1 = time.perf_counter()
+            render(poses[:views])
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms[views] = float(np.median(times))
+    twin = TwinMesh(*meshgen.furnished_house_mesh()[:3])
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        parts = list(pool.map(lambda i: twin.render(poses[i:i + 1], IMAGE_SIZE, env.cam,
+                                                    env.max_depth, tie_tol=MESH_TIE_TOL),
+                              range(STOP_VIEWS)))
+    twin_s = time.perf_counter() - t1
+    t_depth, t_rgb, t_rgb2 = (np.concatenate([p[k] for p in parts]) for k in range(3))
+    depth_diff = float(np.abs(depth - t_depth).max())
+    near = np.abs(rgb.astype(int) - t_rgb).max(-1) <= 1
+    share_plain = float(near.mean())
+    share = float((near | (np.abs(rgb.astype(int) - t_rgb2).max(-1) <= 1)).mean())
+    tied = float((t_rgb2 != t_rgb).any(-1).mean())
+    log(f"[eval_mesh] furnished house at {IMAGE_SIZE} px: built in {build_s:.3f} s "
+        f"({len(env.mesh._f)} triangles, floors {env.floor_heights}); host-library render "
+        f"{ms[STOP_VIEWS]:.4f} ms for {STOP_VIEWS} views, {ms[1]:.4f} ms for one (median; "
+        f"{os.cpu_count()} host cores); numpy twin {twin_s:.2f} s for the {STOP_VIEWS} views")
+    log(f"[eval_mesh] host library vs twin over {depth.size} pixels: depth max abs diff "
+        f"{depth_diff:.3g} (allowed {MESH_DEPTH_ATOL:g}); RGB within +-1 on {share:.6f} of "
+        f"them (allowed {MESH_RGB_SHARE}), {share_plain:.6f} against the nearest face alone; "
+        f"{tied:.6f} of them on coplanar faces")
+    if not depth_diff <= MESH_DEPTH_ATOL or not share > MESH_RGB_SHARE:
+        raise AssertionError(f"mesh render: depth {depth_diff}, RGB share {share}")
+    return {"build_s": build_s, "render_ms_12_views": ms[STOP_VIEWS], "render_ms_1_view": ms[1],
+            "twin_s": twin_s, "depth_max_abs_diff": depth_diff, "rgb_share_within_1": share,
+            "rgb_share_nearest_face_only": share_plain, "coplanar_share": tied}
+
+
+def mesh_geodesic_check(tmp: Path) -> dict:
+    """Phase 10 (b): 2 geodesic-scored episodes in the furnished house at
+    224 px, one on each floor, mapped on the card and on the CPU: equal
+    step logs (STOP mode) and equal SPL."""
+    t0 = time.perf_counter()
+    template, house = make_furnished_house(size_px=IMAGE_SIZE, seed=SEED)
+    episodes = []
+    for floor, cls in MESH_GEODESIC_EPISODES:
+        start, ang = template.sample_start_state(floor)
+        goals = relevant_locations(start, house.object_locations_for_habitat_dest[cls])
+        gd = min(template.geodesic_distance(start, g) for g in goals)
+        episodes.append(("FurnishedHouse", floor, cls, gd, start, ang))
+    episodes = np.array(episodes, dtype=object)
+    out = {}
+    for stop in (True, False):
+        for device in ("cuda", "cpu"):
+            cfg = get_eval_defaults()
+            cfg.SLAM, cfg.SEED, cfg.STOP = True, SEED, stop
+            cfg.RESULT_LOCATION = str(tmp / f"mesh_{device}_{stop}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_policy(cfg, episodes, env_factory=lambda h, mc, c: template.clone(seed=SEED),
+                           house_factory=lambda name: house, device=device,
+                           scorer_factory=lambda env, ci: make_geodesic_scorer(env))
+            out[device, stop] = DiskReader(str(Path(cfg.RESULT_LOCATION)
+                                               / name_from_config(cfg))).data()
+    n = len(MESH_GEODESIC_EPISODES)
+    steps = 0
+    for k in range(n):
+        got, want = out["cuda", True].get(k), out["cpu", True].get(k)
+        if got is None or want is None or len(got) != len(want) or any(
+                not np.array_equal(g[0], w[0]) or list(g[1:]) != list(w[1:])
+                for g, w in zip(got, want)):
+            raise AssertionError(f"furnished episode {k}: the card's step log differs from "
+                                 f"the CPU's")
+        steps += len(got)
+    spl = out["cpu", False]
+    if out["cuda", False] != spl or len(spl) != n:
+        raise AssertionError(f"furnished SPL card {out['cuda', False]} vs cpu {spl}")
+    seconds = time.perf_counter() - t0
+    log(f"[eval_mesh] {n} geodesic furnished-house episodes at {IMAGE_SIZE} px (floors "
+        f"{[f for f, _ in MESH_GEODESIC_EPISODES]}), card vs cpu: {steps} logged steps equal, "
+        f"SPL equal {[round(v, 4) for v in spl.values()]} ({seconds:.1f} s for the four runs)")
+    return {"logged_steps": steps, "spl": [float(v) for v in spl.values()], "seconds": seconds}
+
+
+def mesh_scene_check(tmp: Path) -> dict:
+    """Phase 10 (d): the evaluate CLI's --mesh-scene on the furnished house
+    written as a PLY file at run time: one geodesic episode, mapped on the
+    card, its SPL on disk."""
+    scene = tmp / "furnished.ply"
+    write_ply(str(scene), *meshgen.furnished_house_mesh()[:3])
+    cfg_path = tmp / "scene.yml"
+    cfg_path.write_text("\n".join(_yaml({"SCORE": "geodesic", "SLAM": True, "SEED": SEED,
+                                          "RESULT_LOCATION": str(tmp / "results_scene")})) + "\n")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        mean = evaluate_cli.main(["--mesh-scene", str(scene), str(cfg_path)])
+    seconds = time.perf_counter() - t0
+    results = DiskReader(str(tmp / "results_scene" / name_from_config(
+        load_file(str(cfg_path))))).data()
+    if mean is None or sorted(results) != [0] or not 0.0 <= float(results[0]) <= 1.0:
+        raise AssertionError(f"--mesh-scene: results {results}\n{text.getvalue()[-2000:]}")
+    log(f"[eval_mesh] evaluate CLI --mesh-scene on a {scene.stat().st_size / 1e3:.1f} kB PLY "
+        f"written at run time: 1 episode, SPL {float(results[0]):.4f} ({seconds:.1f} s)")
+    return {"spl": float(results[0]), "seconds": seconds}
+
+
+def mesh_eval_path() -> dict:
+    """Phase 10: (a) the render against the twin, (b) geodesic episodes
+    card vs CPU, (c) the published Q-net through the evaluate CLI's
+    batched path in the furnished house, (d) --mesh-scene."""
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        out = {"render": mesh_render_check(), "geodesic": mesh_geodesic_check(tmp)}
+        ckpt = tmp / "qnet.torch"
+        seeded_checkpoint(ckpt, published_config())
+        # the main path: counts from 0, 4 episodes, 4 in flight, 2 cohorts
+        out.update(scored_cli_run(tmp, ckpt, "eval_mesh", MESH_EPISODES, MESH_IN_FLIGHT,
+                                  MESH_PROFILED_EPISODES, "--furnished-env",
+                                  env_cls=MeshNavEnv))
+        out["mesh_scene"] = mesh_scene_check(tmp)
+    out["seconds"] = time.perf_counter() - t0
+    stop = out["ms_per_stop"]
+    out["render_share_of_stop"] = stop["render"]["median"] / stop["total"]["median"]
+    log(f"[eval_mesh] phase 10 in {out['seconds']:.1f} s; a stop's render (median) "
+        f"{stop['render']['median']:.4f} of {stop['total']['median']:.4f} ms, a share of "
+        f"{out['render_share_of_stop']:.4f}")
+    return out
 
 
 def main() -> None:
@@ -1804,6 +2004,7 @@ def main() -> None:
     label = label_path(inv)
     inv.pop("tmp")
     ev = eval_path()
+    ev_mesh = mesh_eval_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -1817,13 +2018,15 @@ def main() -> None:
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
             "launches": (serve["launches"][path] + train["launches"][path]
                          + real["launches"][path] + inv["launches"][path]
-                         + label["launches"][path] + ev["launches"][path]),
+                         + label["launches"][path] + ev["launches"][path]
+                         + ev_mesh["launches"][path]),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
             "launches_inverse": inv["launches"][path],
             "launches_label": label["launches"][path],
             "launches_eval": ev["launches"][path],
+            "launches_eval_mesh": ev_mesh["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -1838,6 +2041,7 @@ def main() -> None:
     log(json.dumps({"inverse": inv}))
     log(json.dumps({"label": label}))
     log(json.dumps({"eval": ev}))
+    log(json.dumps({"eval_mesh": ev_mesh}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The port's evaluation on the card, held to the same code on the CPU: a
-reasoning stop's map delta, geodesic episodes step for step, and the
-batched runner's bf16 scores against a float32 forward of the same views.
+reasoning stop's map delta, geodesic episodes step for step, the batched
+runner's bf16 scores against a float32 forward of the same views, and in
+the furnished house the host library's render against the numpy twin and
+the evaluate CLI's served scores.
 
 Marked `cuda`: without a CUDA device each test skips. This file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -16,7 +18,7 @@ import torch
 from video_dqn_tpu_torch.core.disk_logger import DiskReader
 from video_dqn_tpu_torch.eval.batched_runner import run_policy_batched
 from video_dqn_tpu_torch.eval.evaluate import make_geodesic_scorer
-from video_dqn_tpu_torch.eval.fixtures import make_episode_set
+from video_dqn_tpu_torch.eval.fixtures import make_episode_set, make_furnished_house
 from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, name_from_config
 from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
@@ -25,6 +27,8 @@ from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
 from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
 from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
+from video_dqn_tpu_torch.sim.mesh_twin import TwinMesh
+from video_dqn_tpu_torch.sim.meshgen import furnished_house_mesh
 # pytest puts tests/ on the path; `from tests import` could find another
 # installed `tests` package on the card's machine
 import torch_port_util  # noqa: F401  (caps torch threads per worker)
@@ -165,3 +169,81 @@ def test_batched_runner_serves_bf16_scores_of_its_own_views(tmp_path):
         assert scores.shape == (len(images),) and np.isfinite(scores).all()
         want = fp32_scores(model, images, cls, size)
         np.testing.assert_allclose(scores, want, rtol=0, atol=SERVE_ATOL)
+
+
+@pytest.mark.cuda
+def test_furnished_stop_renders_as_the_twin():
+    """The host library's render of a 12-view stop in the furnished house
+    against the numpy twin (chip_smoke.py phase 10 (a), at 48 px): depth
+    within 1e-4, RGB within +-1 on more than 99.9% of the pixels, where a
+    pixel on two coplanar faces may show either face."""
+    env, _ = make_furnished_house(size_px=48, seed=4)
+    pos, ang = env.sample_start_state(0)
+    poses = np.array([[pos[0], pos[1] + env.camera_height, pos[2], ang + k * env.turn]
+                      for k in range(1, 13)])
+    depth, rgb = env.mesh.render(poses, 48, env.cam, env.max_depth)
+    twin = TwinMesh(*furnished_house_mesh()[:3])
+    t_depth, t_rgb, t_rgb2 = twin.render(poses, 48, env.cam, env.max_depth, tie_tol=1e-4)
+    np.testing.assert_allclose(depth, t_depth, rtol=0, atol=1e-4)
+    near = (np.abs(rgb.astype(int) - t_rgb).max(-1) <= 1) | \
+        (np.abs(rgb.astype(int) - t_rgb2).max(-1) <= 1)
+    assert near.mean() > 0.999
+
+
+@pytest.mark.cuda
+def test_furnished_cli_serves_bf16_scores_of_its_own_views(tmp_path, monkeypatch):
+    """The evaluate CLI's batched path in the furnished house (phase 10 (c)
+    at 64 px): one bf16 identity launch per fused score call, every served
+    score within SERVE_ATOL of a float32 card forward of its own views, the
+    SPLs on disk."""
+    from video_dqn_tpu_torch import evaluate as evaluate_cli
+    from video_dqn_tpu_torch.eval.policy_config import load_file
+
+    size = 64
+    monkeypatch.chdir(tmp_path)  # no evaluation/val_episodes.npy here
+    model_dir = tmp_path / "model"
+    model_dir.mkdir()
+    (model_dir / "config.yml").write_text(
+        f"ARCHITECTURE: 'basic'\nPANORAMA: False\nTPU:\n  IMAGE_SIZE: {size}\n")
+    model = init_qnet(HabitatDQN(action_dim=3, extra_capacity=False, panorama=False,
+                                 image_size=size), torch.Generator().manual_seed(4))
+    torch.save({"model_state_dict": model.state_dict()}, tmp_path / "qnet.torch")
+    (tmp_path / "e.yml").write_text(
+        f"SCORE: 'model'\nSLAM: True\nSEED: 1\nMODEL_CONFIG_LOCATION: '{model_dir}'\n"
+        f"PRETRAINED_MODEL_LOCATION: '{tmp_path / 'qnet.torch'}'\n"
+        f"RESULT_LOCATION: '{tmp_path / 'results'}'\n")
+    calls, models = [], []
+    make_scorer = evaluate_cli.make_multiclass_scorer
+
+    def recording(model, **kw):
+        models.append(model)
+        inner = make_scorer(model, **kw)
+
+        class Recorder:
+            def dispatch(self, images, cls):
+                return np.array(images)[:, None], np.array(cls), inner.dispatch(images, cls)
+
+            def gather(self, handle):
+                views, cls, h = handle
+                scores = inner.gather(h)
+                calls.append((views, cls, scores))
+                return scores
+
+            def __call__(self, images, cls):
+                return self.gather(self.dispatch(images, cls))
+
+        return Recorder()
+
+    monkeypatch.setattr(evaluate_cli, "make_multiclass_scorer", recording)
+    rn.LAUNCHES.clear()
+    mean = evaluate_cli.main([str(tmp_path / "e.yml"), "--furnished-env", "--workload", "2",
+                              "--batched", "2", "--pipeline-depth", "2"])
+    assert mean is not None and 0.0 <= mean <= 1.0
+    cfg = load_file(str(tmp_path / "e.yml"))
+    results = DiskReader(str(tmp_path / "results" / name_from_config(cfg))).data()
+    assert sorted(results) == [0, 1]
+    assert dict(rn.LAUNCHES) == {("identity", "bfloat16"): len(calls)} and len(calls) > 1
+    for views, cls, scores in calls:
+        assert scores.shape == (len(views),) and np.isfinite(scores).all()
+        np.testing.assert_allclose(scores, fp32_scores(models[0], views, cls, size),
+                                   rtol=0, atol=SERVE_ATOL)

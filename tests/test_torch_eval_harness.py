@@ -1,7 +1,8 @@
 """The port's evaluation harness against the JAX package's on the same
 fake-env episodes: the sequential runner with the geodesic oracle (equal
 step logs and SPL), result shards read across the packages, run names,
-config loading, the evaluate and results CLIs, and what the port refuses.
+config loading, the evaluate and results CLIs (the mesh flags too), the
+mesh and furnished-house workloads, and what the port refuses.
 The model-scored batched runs are in tests/test_torch_eval_episode.py."""
 
 import importlib.util
@@ -210,13 +211,31 @@ def test_evaluate_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch, caps
                              "--folder"], device="cpu") > 0
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--mesh-env"], "item 6b"), (["--mesh-scene", "x.ply"], "item 6b"),
-    (["--furnished-env"], "item 6b"), (["-v", "--fake-env"], "item 8")])
-def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, flags, match):
-    (tmp_path / "c.yml").write_text(f"RESULT_LOCATION: '{tmp_path}'\n")
-    with pytest.raises(NotImplementedError, match=match):
-        evaluate_cli.main([*flags, str(tmp_path / "c.yml")], device="cpu")
+@pytest.mark.parametrize("flags", [["--mesh-env"], ["--mesh-scene", "scene.ply"],
+                                   ["--furnished-env", "--workload", "1"], ["-v", "--fake-env"]],
+                         ids=["mesh_env", "mesh_scene", "furnished_env", "visualize"])
+def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
+    """The mesh flags run one episode as the JAX CLI does, with the same
+    SPL; -v raises until the visualisation is ported (item 8)."""
+    from video_dqn_tpu.sim.meshgen import maze_mesh
+    from video_dqn_tpu.sim.ply import write_ply
+
+    monkeypatch.chdir(tmp_path)  # no evaluation/val_episodes.npy here
+    write_ply(str(tmp_path / "scene.ply"), *maze_mesh(["#######", "#.....#", "#..#..#",
+                                                       "#.....#", "#######"]))
+    for tag in ("jax", "port"):
+        (tmp_path / f"{tag}.yml").write_text(
+            f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / tag}'\n")
+    if "-v" in flags:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            evaluate_cli.main([*flags, str(tmp_path / "port.yml")], device="cpu")
+        return
+    monkeypatch.setattr(sys, "argv", ["run.py", *flags, str(tmp_path / "jax.yml")])
+    load_jax_cli("run").main()
+    assert evaluate_cli.main([*flags, str(tmp_path / "port.yml")], device="cpu") is not None
+    got = read_results(load_file(str(tmp_path / "port.yml")), DiskReader)
+    want = read_results(jax_load_file(str(tmp_path / "jax.yml")), JaxDiskReader)
+    assert got == want and list(got) == [0]
 
 
 @pytest.mark.parametrize("over", [{"SCORE": "detector"}, {"COMBINE_DETECTOR": True},
@@ -233,9 +252,20 @@ def test_detector_configs_raise_naming_item_7(over):
 
 
 def test_mesh_backends_raise_naming_item_6b():
+    """The mesh and furnished backends build the JAX package's 1-episode
+    sets (they raised until the mesh simulators were ported)."""
     for backend in ("mesh", "furnished"):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            make_episode_set(1, backend=backend)
+        got, _, got_house = make_episode_set(1, size=24, seed=3, backend=backend)
+        want, _, want_house = jax_episode_set(1, size=24, seed=3, backend=backend)
+        assert len(got) == len(want) == 1
+        assert list(got[0][:4]) == list(want[0][:4]) and got[0][5] == want[0][5]
+        np.testing.assert_array_equal(got[0][4], want[0][4])
+        got_pts = got_house(got[0][0]).object_locations_for_habitat_dest
+        want_pts = want_house(want[0][0]).object_locations_for_habitat_dest
+        for cls in want_pts:
+            np.testing.assert_array_equal(got_pts[cls], want_pts[cls])
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_episode_set(1, backend="habitat")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
@@ -246,6 +276,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: run_policy_batched(cfg, [ep], None, None, None),
                  lambda: ours_evaluate(cfg, env, ep, house, 0, make_geodesic_scorer(env)),
                  lambda: evaluate_cli.main(["--fake-env", "no.yml"]),
+                 lambda: evaluate_cli.main(["--mesh-env", "no.yml"]),
+                 lambda: evaluate_cli.main(["--mesh-scene", "no.ply", "no.yml"]),
                  lambda: results_cli.main(["no.yml"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_blocked():
                  "ops.fmm", "plan.mapper", "plan.fmm_planner", "sim.interface",
                  "sim.gibson", "sim.native_render", "sim.fake_env", "eval.policy_config",
                  "eval.evaluate", "eval.runner", "eval.batched_runner", "eval.fixtures",
-                 "eval.results", "evaluate", "results"):
+                 "eval.results", "evaluate", "results", "sim.config", "sim.ply",
+                 "sim.meshgen", "sim.native_mesh", "sim.mesh_twin", "sim.mesh_env"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -69,7 +70,8 @@ def test_every_module_imports_with_jax_blocked():
 def test_sources_name_no_jax():
     files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cc"),
              ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py"]
-    assert {"jpeg_decode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc"} <= {f.name for f in files}
+    assert {"jpeg_decode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc", "mesh.cc"} <= \
+        {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -109,13 +111,14 @@ EVAL_CFG = get_eval_defaults()
     lambda: run_policy(EVAL_CFG, episodes=[]),
     lambda: run_policy_batched(EVAL_CFG, [], None, None, None),
     lambda: evaluate_cli(["--fake-env", "no_such.yml"]),
+    lambda: evaluate_cli(["--furnished-env", "--workload", "1", "no_such.yml"]),
     lambda: results_cli(["no_such.yml"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
         "run_inverse_train", "train_inverse_model_main", "make_inverse_labeler",
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
-        "run_policy_batched", "evaluate_main", "results_main"])
+        "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -88,8 +88,10 @@ def test_gibson_metadata_and_scene_graphs_match_jax(tmp_path, monkeypatch):
     assert [h.name for h in gibson.get_house_split("tiny_val")] == ["Corozal"]
     with pytest.raises(KeyError):
         gibson.get_house("Nowhere")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        gibson.get_house("Adrian").get_env()
+    # no mesh under GIBSON_LOCATION: both packages raise the same error
+    for package in (gibson, jax_gibson):
+        with pytest.raises(RuntimeError, match="no scene mesh for Adrian under GIBSON_LOCATION"):
+            package.get_house("Adrian").get_env()
     assert gibson.get_house("Adrian").get_env(env_factory=lambda path: path).endswith(
         "Adrian.glb")
 

@@ -5,7 +5,8 @@ the sources in the package only, into _build/, and loaded with ctypes:
   * the CUDA kernels: every csrc/*.cu, compiled by nvcc for sm_90a into
     _build/libvdqn_kernels.so (`build`, `load`);
   * the host library: every csrc/host/*.cc (the JPEG decode stage, the
-    LZ4 frame decoder, the FMM solver and the fake env's raycaster),
+    LZ4 frame decoder, the FMM solver, the fake env's raycaster and the
+    mesh simulator's BVH raycaster),
     compiled by the system C++ compiler into
     _build/libvdqn_host.so (`build_host`, `load_host`).
 Each is rebuilt when it is older than one of its sources. A file lock
@@ -129,7 +130,26 @@ HOST = _Library(
                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
                             ctypes.c_double, ctypes.c_double, ctypes.c_double,
                             ctypes.c_double, ctypes.c_double, ctypes.c_void_p,
-                            ctypes.c_void_p], None)})
+                            ctypes.c_void_p], None),
+     "vdqn_mesh_create": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p], ctypes.c_void_p),
+     "vdqn_mesh_destroy": ([ctypes.c_void_p], None),
+     "vdqn_mesh_bounds": ([ctypes.c_void_p, ctypes.c_void_p], None),
+     "vdqn_mesh_render": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p], None),
+     "vdqn_mesh_floor_probe": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                                ctypes.c_void_p, ctypes.c_void_p], None),
+     "vdqn_mesh_floor_levels": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_void_p], None),
+     "vdqn_mesh_column_blocked": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                                   ctypes.c_void_p], None),
+     "vdqn_mesh_raycast": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p], None)})
 LIB = KERNELS.path
 HOST_LIB = HOST.path
 

@@ -69,6 +69,10 @@ class ConfigNode:
                 v.freeze()
         return self
 
+    @property
+    def is_frozen(self) -> bool:
+        return self._frozen
+
     def to_dict(self) -> Dict[str, Any]:
         return {k: (v.to_dict() if isinstance(v, ConfigNode) else v)
                 for k, v in self._fields.items()}
@@ -94,6 +98,24 @@ class ConfigNode:
     def merge_from_file(self, path: str) -> None:
         with open(path) as f:
             self.merge_from_dict(load_yaml(f.read()))
+
+    def merge_from_list(self, opts: List[Any]) -> None:
+        """Merge a flat [KEY, value, KEY, value, ...] list (a command line's
+        overrides); KEY may be dotted, a string value is read as a YAML
+        scalar."""
+        if len(opts) % 2 != 0:
+            raise ConfigError("override list must have even length")
+        for key, val in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = key.split(".")
+            for p in parts[:-1]:
+                node = node[p]
+            leaf = parts[-1]
+            if leaf not in node:
+                raise ConfigError(f"unknown config key: {key!r}")
+            if isinstance(val, str):
+                val = _scalar(val.strip(), key)
+            node[leaf] = _coerce(node[leaf], val, key)
 
     def validate(self, valid_values: Dict[str, list]) -> None:
         """Raise unless each listed key holds one of its allowed values."""

@@ -1,7 +1,8 @@
 """Evaluation CLI of the port (counterpart of the root evaluation/run.py,
 with the same flags):
 
-    python -m video_dqn_tpu_torch.evaluate <config.yml> [--fake-env]
+    python -m video_dqn_tpu_torch.evaluate <config.yml>
+        [--fake-env | --mesh-env | --mesh-scene FILE | --furnished-env]
         [--workload N [--batched K [--pipeline-depth D] [--host-workers W]
          [--gather-timeout S] [--progress-every S]]] [-r] [-d] [-s I]
         [--episodes i,j,...] [-p]
@@ -11,14 +12,18 @@ FMM runs in the port's C++, and with SCORE: model the Q-net of
 MODEL_CONFIG_LOCATION scores the views through the resize+normalize
 kernel. Results land in RESULT_LOCATION/<name_from_config> and are printed
 at the end. Without evaluation/val_episodes.npy (it needs the licensed
-Gibson scenes) or with --fake-env, one episode runs on the fake env;
---workload N generates N fake-env episodes. -p writes a torch.profiler
-trace to RESULT_LOCATION/<name_from_config>_trace.json.
+Gibson scenes) or with --fake-env, one episode runs on the fake env.
+--mesh-env runs one episode on the mesh simulator over the extruded
+default maze, --mesh-scene FILE over a PLY/OBJ/GLB scene (STAIRS sets
+allow_stairs). --workload N generates N episodes: on the furnished
+two-floor house with --furnished-env, on the mesh simulator with
+--mesh-env or --mesh-scene, else on the fake env; a model-scored workload
+renders at the model's TPU.IMAGE_SIZE. -p writes a torch.profiler trace to
+RESULT_LOCATION/<name_from_config>_trace.json.
 
-Not ported yet: the mesh backends (--mesh-env, --mesh-scene,
---furnished-env; ROADMAP.md queue 1, item 6b) and the episode videos of
--v (item 8); each raises. Unlike the JAX CLI, no episode is visualised
-unless -v is given.
+Not ported yet: the episode videos of -v (ROADMAP.md queue 1, item 8),
+which raise. Unlike the JAX CLI, no episode is visualised unless -v is
+given.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import numpy as np
 
 from ._device import resolve_device
 from .eval.batched_runner import run_policy_batched
-from .eval.fixtures import make_env_and_episode, make_episode_set
+from .eval.fixtures import make_env_and_episode, make_episode_set, make_mesh_env_and_episode
 from .eval.policy_config import load_file, name_from_config
 from .eval.results import display_results
 from .eval.runner import load_scoring_model, run_policy
@@ -55,9 +60,13 @@ def parser() -> argparse.ArgumentParser:
                    help="not ported yet (raises)")
     p.add_argument("--fake-env", action="store_true",
                    help="run against the built-in fake environment")
-    p.add_argument("--mesh-env", action="store_true", help="not ported yet (raises)")
-    p.add_argument("--mesh-scene", default=None, help="not ported yet (raises)")
-    p.add_argument("--furnished-env", action="store_true", help="not ported yet (raises)")
+    p.add_argument("--mesh-env", action="store_true",
+                   help="run against the mesh simulator (extruded maze)")
+    p.add_argument("--mesh-scene", default=None,
+                   help="PLY/OBJ/GLB scene file for the mesh simulator")
+    p.add_argument("--furnished-env", action="store_true",
+                   help="workload runs on the furnished two-floor house with "
+                        "real class-object goals")
     p.add_argument("--workload", default=None,
                    help="run N generated episodes (product workload)")
     p.add_argument("--batched", default=None, type=int, metavar="N",
@@ -86,10 +95,6 @@ def main(argv: Optional[List[str]] = None, device=None):
     of the run's results folder (None when it is empty)."""
     args = parser().parse_args(argv)
     device = resolve_device(device)
-    if args.mesh_env or args.mesh_scene or args.furnished_env:
-        raise NotImplementedError(
-            "--mesh-env, --mesh-scene and --furnished-env: the mesh simulators are "
-            "not ported to video_dqn_tpu_torch yet (ROADMAP.md, queue 1, item 6b)")
     if args.visualize:
         raise NotImplementedError(
             "-v: the episode visualisation is not ported to video_dqn_tpu_torch "
@@ -106,13 +111,26 @@ def main(argv: Optional[List[str]] = None, device=None):
 
     kwargs = {}
     if args.workload:
+        backend = ("furnished" if args.furnished_env
+                   else "mesh" if (args.mesh_env or args.mesh_scene)
+                   else "fake")
         size = 48
         if config.SCORE == "model" and config.MODEL_CONFIG_LOCATION:
             # render at the model's training resolution
             size = int(config.MODEL_CONFIG.TPU.IMAGE_SIZE)
         episodes, env_factory, house_factory = make_episode_set(
-            int(args.workload), size=size, fresh_envs=bool(args.batched))
+            int(args.workload), backend=backend, size=size,
+            mesh_path=args.mesh_scene, fresh_envs=bool(args.batched))
         kwargs = {"env_factory": env_factory, "house_factory": house_factory}
+    elif args.mesh_env or args.mesh_scene:
+        # the mesh simulator: a scene file, or the extruded maze without one
+        env, house, ep = make_mesh_env_and_episode(
+            mesh_path=args.mesh_scene, allow_stairs=bool(config.STAIRS))
+        episodes = np.array([ep], dtype=object)
+        kwargs = {
+            "env_factory": lambda h, mc, c: env,
+            "house_factory": lambda name: house,
+        }
     elif args.fake_env or episodes is None:
         # no licensed Gibson assets: the full loop on the fake env
         env, house, ep = make_env_and_episode()
@@ -152,7 +170,7 @@ def main(argv: Optional[List[str]] = None, device=None):
     else:
         if args.batched:
             print("--batched needs SCORE: model and a generated-episode "
-                  "mode (--fake-env/--workload); running sequentially")
+                  "mode (--fake-env/--mesh-env/--workload); running sequentially")
         run_policy(config, episodes=episodes, debug=args.debug,
                    resume=args.resume, start=args.start, device=device, **kwargs)
     if prof is not None:

@@ -9,9 +9,9 @@ of video_dqn_tpu/sim/gibson.py, copied whole):
   * relevant_locations / relevant_objects same-floor filters (y-delta in
     [0, 1))
 The per-house floor tables and class colours come from the repo's
-data/gibson/house_metadata.json. An env is built through a factory the
-caller passes (GibsonHouse.get_env(env_factory=...)); the default, a mesh
-of the house under GIBSON_LOCATION, waits for the mesh backend.
+data/gibson/house_metadata.json. GibsonHouse.get_env opens the house's
+mesh under GIBSON_LOCATION with the mesh simulator, or calls the factory
+the caller passes.
 """
 
 from __future__ import annotations
@@ -156,11 +156,11 @@ class GibsonHouse:
             return False
 
     def get_env(self, env_factory: Optional[Callable] = None, **kwargs):
-        """Build the navigation env for this house: env_factory receives
-        (scene_path, **kwargs), the scene path being the house's mesh under
-        GIBSON_LOCATION (.glb/.ply/.obj). Without a factory the JAX package
-        opens the mesh with its mesh backend, which the port does not have
-        yet."""
+        """Build the navigation env for this house. env_factory receives
+        (scene_path, **kwargs); the default looks for the house's mesh
+        under GIBSON_LOCATION (.glb/.ply/.obj) and opens it with the mesh
+        simulator (sim/mesh_env.py MeshNavEnv), passing the house's floor
+        count."""
         root = os.environ.get("GIBSON_LOCATION", "")
         scene = None
         for ext in (".glb", ".ply", ".obj"):
@@ -172,10 +172,17 @@ class GibsonHouse:
             return env_factory(
                 scene or os.path.join(root, f"{self.name}.glb"), **kwargs
             )
-        raise NotImplementedError(
-            f"no env_factory for {self.name}: the mesh backend that opens a "
-            "house's scene is not ported to video_dqn_tpu_torch yet "
-            "(ROADMAP.md, queue 1, item 6b)")
+        if scene is None:
+            raise RuntimeError(
+                f"no scene mesh for {self.name} under GIBSON_LOCATION="
+                f"{root!r} (.glb/.ply/.obj) and no env_factory given; the "
+                "licensed Gibson download provides the meshes"
+            )
+        from .mesh_env import MeshNavEnv
+
+        if "num_floors" not in kwargs:
+            kwargs["num_floors"] = self.num_floors
+        return MeshNavEnv(mesh_path=scene, **kwargs)
 
 
 def _load_metadata(gibson_location: Optional[str] = None) -> List[Dict]:
