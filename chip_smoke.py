@@ -9,7 +9,12 @@ prints no result line):
   2. build: nvcc compiles every kernel from the sources in the checkout;
   3. each kernel against its plain torch version on the card, at the
      shapes the serving path gives it, in float32 and bfloat16 output, with
-     its profiled device time, its bound and the wrapper's host cost;
+     its profiled device time, its bound and the wrapper's host cost; and
+     the NMS kernel (csrc/nms.cu) against nms_reference at the detector's
+     shapes (B*5 RPN groups of up to 1,000 -> 1,000, B final groups of
+     1,000 -> 100, B = 4 and 12) and on tied, -inf and one-candidate
+     groups: keep lists and valid flags equal, with its device time, the
+     plain twin's and the bound from this data's IoUs;
   4. the serving path at full width: the published extra_capacity
      single-frame Q-net (configs/experiments/real_data/config.yml, 224 px,
      5 classes x 3 actions) with seeded random weights, loaded through
@@ -106,7 +111,20 @@ prints no result line):
      checks and prints of phase 9 (c) and the idle share of a profiled run
      of 2 episodes; (d) --mesh-scene on the house written as a PLY file at
      run time runs one geodesic episode to an SPL on disk;
-  11. a JSON line of every ported kernel, then the result line.
+  11. the detector at full width (maskrcnn_resnet50_fpn, seeded
+     torchvision-named weights saved as a .pth and loaded through
+     load_detector, 224 px, bf16): (a) a 12-view fake-env stop and 4
+     fixture frames, one identity launch and two NMS launches a call;
+     bf16 against float32 on the card and float32 card against the CPU,
+     stage by stage on the same proposals (FPN maps, class probabilities,
+     boxes) with the end-to-end twins counted; ms a 12-view call, images/s
+     at B = 4 and 32, the busy share and peak memory; (b) the detection
+     CLI over the fixture frames, then process_episodes on its output;
+     (c) the evaluate CLI with COMBINE_DETECTOR, the seeded detector and
+     the published Q-net, 4 fake-env episodes, 4 in flight: one detector
+     call a stop, bumped views, episodes/s and the detector's share of a
+     stop;
+  12. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -130,7 +148,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_dqn_tpu_torch import _build, process_episodes, train_inverse_model, train_q_network
+from video_dqn_tpu_torch import (_build, detect_real_videos, process_episodes,
+                                 train_inverse_model, train_q_network)
 from video_dqn_tpu_torch import evaluate as evaluate_cli
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
 from video_dqn_tpu_torch.core.config import load_yaml
@@ -138,6 +157,7 @@ from video_dqn_tpu_torch.core.defaults import get_cfg_defaults
 from video_dqn_tpu_torch.core.disk_logger import DiskReader
 from video_dqn_tpu_torch.core.experiment import ExperimentConfig
 from video_dqn_tpu_torch.core.metrics import read_metrics
+from video_dqn_tpu_torch.data.detect import COCO_TARGET_IDS
 from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
 from video_dqn_tpu_torch.data.episodes import make_inverse_labeler
 from video_dqn_tpu_torch.data.feather import read_feather
@@ -154,6 +174,11 @@ from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file,
 from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
 from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
+from video_dqn_tpu_torch.models.detector import boxes as det_boxes
+from video_dqn_tpu_torch.models.detector.convert import convert_maskrcnn
+from video_dqn_tpu_torch.models.detector.inference import TorchDetector, load_detector
+from video_dqn_tpu_torch.models.detector.maskrcnn import BOX_WEIGHTS, STRIDES, MaskRCNN
+from video_dqn_tpu_torch.models.detector.roi_align import multilevel_roi_align
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
@@ -171,6 +196,8 @@ from video_dqn_tpu_torch.train import dqn, inverse
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
+from torch_detector_util import (seeded_maskrcnn_state_dict,  # noqa: E402  (phase 11's
+                                 unmatched_detections)         # weights and matching)
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -332,14 +359,13 @@ def kernel_flops(shape, out: int) -> int:
     return b * (out * w * 3 * 2 * k_h + out * out * 3 * (2 * k_w + 2))
 
 
-def kernel_device_ms(fn, calls: int = 20):
-    """Profiled device time of the resize_normalize kernel per call of fn,
+def kernel_device_ms(fn, calls: int = 20, kernel: str = "resize_normalize"):
+    """Profiled device time of the kernel named `kernel` per call of fn,
     or None where the profiler missed some of its launches twice (its
     first profiling run can drop events)."""
     for _ in range(2):
         prof = device_profile(fn, calls=calls)
-        seen = [(n, us) for name, (n, us) in prof["by_name"].items()
-                if "resize_normalize" in name]
+        seen = [(n, us) for name, (n, us) in prof["by_name"].items() if kernel in name]
         if sum(n for n, _ in seen) == calls:
             return sum(us for _, us in seen) / calls / 1e3
     return None
@@ -423,6 +449,125 @@ def kernel_vs_plain() -> list[dict]:
                 f"float NCHW (other borders, no normalize, f32): {interp_ms:.4f} ms")
             rows.append(row)
     del flush
+    return rows
+
+
+# -- phase 3: the NMS kernel -----------------------------------------------------
+
+# the RPN's candidates a level at 224 px (top 1,000 of 56²·3, 28²·3 anchors,
+# all 14²·3, 7²·3, 4²·3) and the final class NMS's 1,000 -> 100
+RPN_LEVELS, RPN_THRESH = (1000, 1000, 588, 147, 48), 0.7
+FINAL_CANDIDATES, FINAL_KEEP, FINAL_THRESH = 1000, 100, 0.5
+DETECTOR_BATCHES = (4, 12)
+# float operations of one IoU and its comparison (csrc/nms.cu `iou`)
+NMS_PAIR_FLOPS = 17
+
+
+def nms_inputs(groups: int, n: int, lengths, span: float, classes: int, seed: int):
+    """Groups of n boxes in descending score order as the detector feeds
+    them: boxes of anchor sizes 16-256 px in a `span` image (each group's
+    `classes` classes offset apart as batched_class_nms does), a third of
+    the scores tied in runs, near-duplicates of earlier boxes, and -inf
+    past each group's length."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, span, (groups, n, 2))
+    wh = np.exp(rng.uniform(np.log(16), np.log(256), (groups, n, 2)))
+    boxes = np.clip(np.concatenate([xy, xy + wh], -1), 0, span)
+    dup = rng.random((groups, n)) < 0.3
+    src = np.maximum(np.arange(n) - rng.integers(1, 20, (groups, n)), 0)
+    near = np.take_along_axis(boxes, src[..., None].repeat(4, -1), 1) + rng.normal(
+        0, 3, (groups, n, 4))
+    boxes = np.where(dup[..., None], near, boxes)
+    boxes += rng.integers(0, classes, (groups, n, 1)) * (span + 1)
+    scores = -np.sort(-np.round(rng.random((groups, n)), 2), axis=1)  # ties in runs
+    for g, m in enumerate(lengths):
+        scores[g, m:] = -np.inf
+    return (torch.from_numpy(boxes.astype(np.float32)).cuda(),
+            torch.from_numpy(scores.astype(np.float32)).cuda())
+
+
+def nms_pairs(boxes, scores, thr: float, keep, valid) -> int:
+    """IoUs the walk computes on this data: for each kept candidate, the
+    later candidates still alive then (csrc/nms.cu computes one IoU each)."""
+    iou = det_boxes.box_iou(boxes, boxes)
+    g, n = scores.shape
+    later = torch.arange(n, device=scores.device)
+    alive = torch.isfinite(scores)
+    rows = torch.arange(g, device=scores.device)
+    pairs = 0
+    for t in range(keep.shape[1]):
+        k, ok = keep[:, t].long(), valid[:, t]
+        after = (later[None, :] > k[:, None]) & ok[:, None]
+        pairs += int((alive & after).sum())
+        suppress = (iou[rows, k] > thr) | (later[None, :] == k[:, None])
+        alive = torch.where(ok[:, None], alive & ~suppress, alive)
+    return pairs
+
+
+def nms_vs_plain() -> list[dict]:
+    """The NMS kernel against nms_reference on the card at the detector's
+    shapes (B*5 RPN groups of up to 1,000 -> 1,000 kept, B final groups of
+    1,000 -> 100, B = 4 and 12) and on edge inputs (all-tied scores, -inf
+    rows, one-candidate groups): keep lists and valid flags equal. Times:
+    the kernel's profiled device ms (the wrapper's order check is a
+    separate reduction), the plain twin's ms, and the bound from the bytes
+    and this data's IoUs."""
+    cases = []
+    for b in DETECTOR_BATCHES:
+        cases.append((f"rpn_b{b}", b * 5, max(RPN_LEVELS), RPN_LEVELS * b, IMAGE_SIZE, 1,
+                      RPN_THRESH, max(RPN_LEVELS)))
+        cases.append((f"final_b{b}", b, FINAL_CANDIDATES, [FINAL_CANDIDATES] * b, IMAGE_SIZE,
+                      90, FINAL_THRESH, FINAL_KEEP))
+    rows = []
+    for k, (name, g, n, lengths, span, classes, thr, max_out) in enumerate(cases):
+        boxes, scores = nms_inputs(g, n, lengths, span, classes, SEED + k)
+        keep, valid = det_boxes.nms_groups(boxes, scores, thr, max_out)
+        want_keep, want_valid = det_boxes.nms_reference(boxes, scores, thr, max_out)
+        torch.cuda.synchronize()
+        if not (torch.equal(keep, want_keep) and torch.equal(valid, want_valid)):
+            raise AssertionError(f"nms {name}: the kernel's keep/valid differ from the plain "
+                                 f"version's ({int((keep != want_keep).sum())} indices, "
+                                 f"{int((valid != want_valid).sum())} flags)")
+        call = lambda: det_boxes.nms_groups(boxes, scores, thr, max_out)  # noqa: E731
+        event_ms = cuda_ms(call, iters=10)
+        device_ms = kernel_device_ms(call, calls=10, kernel="nms_kernel")
+        ms = device_ms if device_ms is not None else event_ms
+        plain_ms = cuda_ms(lambda: det_boxes.nms_reference(boxes, scores, thr, max_out),
+                           iters=2, warmup=1)
+        pairs = nms_pairs(boxes, scores, thr, keep, valid)
+        n_bytes = g * n * 20 + g * max_out * 5 + g * 4
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = pairs * NMS_PAIR_FLOPS / FP32_FLOPS * 1e3
+        row = {"case": name, "groups": g, "n": n, "max_out": max_out, "threshold": thr,
+               "kept": int(valid.sum()), "max_abs_err": 0.0, "tolerance": "equal",
+               "ms": ms, "ms_source": "profiler" if device_ms is not None else "events",
+               "event_ms": event_ms, "plain_ms": plain_ms, "pairs": pairs, "bytes": n_bytes,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": None}
+        log(f"[kernel] nms {name}: {g} groups x {n} -> {max_out} (IoU > {thr}): keep and valid "
+            f"equal to the plain version ({row['kept']} kept); device {ms:.4f} ms "
+            f"({row['ms_source']}), events {event_ms:.4f} ms (with the order check); plain "
+            f"{plain_ms:.4f} ms; {pairs} IoUs, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / ms:.2%} of it")
+        rows.append(row)
+    # edge inputs: every score tied, whole -inf groups, single candidates
+    boxes, scores = nms_inputs(6, 64, [64, 0, 1, 64, 33, 2], 96.0, 1, SEED)
+    scores[0] = 0.5
+    scores[3, :40] = 0.25
+    for thr in (0.0, 0.5, 1.0):
+        keep, valid = det_boxes.nms_groups(boxes, scores, thr, 64)
+        want_keep, want_valid = det_boxes.nms_reference(boxes, scores, thr, 64)
+        if not (torch.equal(keep, want_keep) and torch.equal(valid, want_valid)):
+            raise AssertionError(f"nms edge inputs at IoU {thr}: keep/valid differ")
+    try:
+        det_boxes.nms_groups(boxes, scores.flip(1), 0.5, 8)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("nms accepted groups out of score order")
+    log("[kernel] nms edge inputs (all tied, -inf groups, one candidate, IoU 0 / 0.5 / 1): "
+        "equal; unsorted groups raise")
     return rows
 
 
@@ -1993,10 +2138,480 @@ def mesh_eval_path() -> dict:
     return out
 
 
+# -- phase 11: the detector --------------------------------------------------------
+
+DETECTOR_VIEWS, DETECTOR_FRAMES = 12, 4
+# The detector is compared stage by stage on the same proposals (the CPU
+# run's): the FPN maps (relative L2), class probabilities, and each
+# proposal's decoded box for the reference run's top class. On renders two
+# runs may select other candidates: random weights and flat renders tie
+# objectness across thousands of anchors (a fake-env render's top 1,000 P2
+# logits hold ~670 distinct values on the CPU), and a tie that float noise
+# breaks on one device and not the other picks another anchor. So there
+# the detections that find a twin end to end are counted, not held.
+# bf16 card against float32 card: maps within 5% (bf16 keeps 8 bits, ~0.4%
+# a rounding, over ~60 layers), probabilities within 0.02, boxes at IoU >=
+# 0.9; end to end, twins of the detections above 0.3: same class, scores
+# within 0.02, IoU >= 0.9.
+BF16_FEATURE_RTOL, BF16_MIN_SCORE, BF16_SCORE_ATOL, BF16_MIN_IOU = 0.05, 0.3, 0.02, 0.9
+# float32 card (no TF32) against the float32 CPU, sums in another order:
+# maps within 1e-4, probabilities within 1e-4, boxes within 1e-2 px, the
+# same top class wherever the CPU's two best are 1e-4 apart or more.
+CPU_FEATURE_RTOL, CPU_SCORE_ATOL, CPU_BOX_ATOL = 1e-4, 1e-4, 1e-2
+# On noise frames the card's selection is held exactly to the CPU's on the
+# same head outputs: every detection has a twin of the same class, its
+# score within 1e-6 and its box within 1e-3 px (the two devices' float32
+# softmax and exp differ in the last bits). The entry point end to end,
+# float32 card against the CPU, each with its own heads: at least 99% of
+# the detections twinned by CPU_SCORE_ATOL and CPU_BOX_ATOL. A head output
+# that differs in the 6th digit can still move a candidate across a cut
+# (1,000 of 9,408 P2 anchors; 1,000 of 90,000 class candidates) or an NMS
+# threshold, and one such move changes a chain of suppressions: 3 of 1,200
+# detections in one image at 224 px on the H100. Where an image holds
+# max_detections, the detections within 2e-4 of the CPU's lowest, which
+# may trade places at the cut, are left out.
+SELECT_SCORE_ATOL, SELECT_BOX_ATOL = 1e-6, 1e-3
+E2E_MIN_TWINNED = 0.99
+# the target classes' mean logits over the best other class's
+# (detector_weights)
+TARGET_LOGIT_MARGIN = 3.0
+DETECTOR_RATE_BATCHES = (4, 32)
+DETECTOR_EPISODES = 4
+FUSION_THRESHOLD = 0.3
+
+
+def detector_weights(path: Path) -> dict:
+    """Seeded torchvision-named maskrcnn_resnet50_fpn weights (seed 4,
+    tests/torch_detector_util.py), saved to `path` as a .pth. Random
+    weights score every class about alike and give every ROI nearly the
+    same features, so one class would win everywhere. The class logits are
+    spread (cls_score's kernel x6) and the 5 target classes' biases set so
+    that their mean logits over a noise frame's proposals (a float32 CPU
+    run) stand level, TARGET_LOGIT_MARGIN above the best other class: each
+    ROI's own features then pick among the 5, detections above the fusion
+    threshold occur, and the class NMS's offsets separate several classes."""
+    sd = seeded_maskrcnn_state_dict(seed=SEED, with_masks=False)
+    sd["roi_heads.box_predictor.cls_score.weight"] *= 6.0
+    model = MaskRCNN().eval()
+    model.load_state_dict(sd, strict=True)
+    frame = noise_frames(1, SEED)
+    with torch.no_grad():
+        feats = model.features(rn.normalize_u8(torch.from_numpy(frame), torch.float32))
+        rois = model.proposals(feats, IMAGE_SIZE, IMAGE_SIZE)
+        logits, _ = model.roi_heads.box_scores(multilevel_roi_align(feats[:4], rois,
+                                                                    STRIDES[:4], 7))
+    mean = logits.mean(0)
+    targets = list(COCO_TARGET_IDS.values())
+    others = [c for c in range(1, len(mean)) if c not in targets]
+    sd["roi_heads.box_predictor.cls_score.bias"][targets] += (
+        mean[others].max() + TARGET_LOGIT_MARGIN - mean[targets])
+    torch.save(sd, path)
+    return sd
+
+
+def noise_frames(n: int, seed: int) -> np.ndarray:
+    """n uint8 frames of uniform noise at IMAGE_SIZE: no flat region, so
+    objectness and class scores do not tie across anchors."""
+    return np.random.default_rng(seed).integers(0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                                dtype=np.uint8)
+
+
+def box_iou_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return det_boxes.box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+
+def bf16_unmatched(got: dict, want: dict) -> list:
+    """Detections of either side above BF16_MIN_SCORE + BF16_SCORE_ATOL
+    with no twin on the other above BF16_MIN_SCORE - BF16_SCORE_ATOL: same
+    class, score within BF16_SCORE_ATOL, box IoU at least BF16_MIN_IOU."""
+    missing = []
+    for a, b, side in ((got, want, "bf16"), (want, got, "f32")):
+        pool = [j for j in range(len(b["scores"]))
+                if b["scores"][j] > BF16_MIN_SCORE - BF16_SCORE_ATOL]
+        iou = box_iou_np(a["boxes"], b["boxes"]) if len(a["boxes"]) and len(b["boxes"]) else None
+        for i in range(len(a["scores"])):
+            if a["scores"][i] <= BF16_MIN_SCORE + BF16_SCORE_ATOL:
+                continue
+            match = [j for j in pool if b["classes"][j] == a["classes"][i]
+                     and abs(b["scores"][j] - a["scores"][i]) <= BF16_SCORE_ATOL
+                     and iou[i, j] >= BF16_MIN_IOU]
+            if match:
+                pool.remove(match[0])
+            else:
+                missing.append((side, int(a["classes"][i]), float(a["scores"][i])))
+    return missing
+
+
+@torch.no_grad()
+def detector_stages(model: MaskRCNN, images: np.ndarray, device, dtype,
+                    proposals=None) -> dict:
+    """One run of the detector's stages on `device` in `dtype` (bf16 under
+    autocast, float32 without TF32): the FPN maps, its own proposals and
+    detections, and on `proposals` (default its own) the box head's class
+    probabilities, top classes and box deltas."""
+    x = torch.from_numpy(images).to(device)
+    h, w = images.shape[1:3]
+    with no_tf32(), torch.autocast(device, dtype=torch.bfloat16,
+                                   enabled=dtype == torch.bfloat16):
+        feats = model.features(rn.normalize_u8(x, dtype))
+        own = model.proposals(feats, h, w)
+        dets = model.detect(feats, own, h, w)
+        props = own if proposals is None else proposals.to(device)
+        logits, deltas = model.roi_heads.box_scores(
+            multilevel_roi_align(feats[:4], props, STRIDES[:4], 7))
+    probs = torch.softmax(logits.float(), -1)
+    rois = props.reshape(-1, 4)
+    keep = dets["valid"] & (dets["scores"] > 0.05)
+    per_image = [{k: dets[k][i][keep[i]].cpu().numpy() for k in ("boxes", "scores", "classes")}
+                 for i in range(len(images))]
+    return {"feats": [f.float().cpu() for f in feats], "proposals": own, "probs": probs.cpu(),
+            "top": probs[:, 1:].argmax(-1).cpu() + 1,
+            "deltas": deltas.float().view(len(rois), -1, 4).cpu(), "rois": rois.cpu(),
+            "dets": per_image}
+
+
+def compare_stages(a: dict, b: dict) -> dict:
+    """a's stages against b's on the same proposals (b's); each proposal's
+    box decoded for b's top class in both."""
+    real = (b["rois"][:, 2] > b["rois"][:, 0]) & (b["rois"][:, 3] > b["rois"][:, 1])
+    top2 = b["probs"][:, 1:].topk(2, -1).values
+    clear = real & (top2[:, 0] - top2[:, 1] >= CPU_SCORE_ATOL)
+    rows = torch.arange(len(b["rois"]))
+    boxes_a, boxes_b = (det_boxes.decode_boxes(b["rois"], r["deltas"][rows, b["top"]],
+                                               BOX_WEIGHTS)[real] for r in (a, b))
+    iou = det_boxes.box_iou(boxes_a[:, None], boxes_b[:, None])[:, 0, 0]
+    return {"feature_rel_err": max(float((x - y).norm() / y.norm())
+                                   for x, y in zip(a["feats"], b["feats"])),
+            "prob_max_abs_diff": float((a["probs"] - b["probs"]).abs().max()),
+            "box_max_abs_diff": float((boxes_a - boxes_b).abs().max()),
+            "box_min_iou": float(iou.min()), "proposals": int(real.sum()),
+            "top_class_differs": int((a["top"][clear] != b["top"][clear]).sum()),
+            "top_class_compared": int(clear.sum())}
+
+
+def detector_images() -> np.ndarray:
+    """A 12-view stop of fake-env renders at 224 px and 4 committed fixture
+    frames decoded to 224 px: (16, 224, 224, 3) uint8."""
+    env = FakeNavEnv(image_size=IMAGE_SIZE, seed=SEED)
+    env.set_agent_state(*env.sample_start_state())
+    views = [env.step(1)[0]["rgb"] for _ in range(DETECTOR_VIEWS)]
+    files = sorted(str(p) for p in (ROOT / "tests/data/torch_qdata/frames").rglob("*.jpg"))
+    frames = load_images(files[::len(files) // DETECTOR_FRAMES][:DETECTOR_FRAMES], IMAGE_SIZE)
+    return np.concatenate([np.stack(views), frames])
+
+
+@contextlib.contextmanager
+def forward_hooks(modules, hooks):
+    handles = [m.register_forward_hook(h) for m, h in zip(modules, hooks)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _on_cpu(out):
+    return [_on_cpu(t) for t in out] if isinstance(out, (list, tuple)) else out.cpu()
+
+
+def noise_checks(pth: Path, detector: TorchDetector) -> dict:
+    """Phase 11 (a) on DETECTOR_VIEWS noise frames, through load_detector.
+    (1) The card's selection held exactly: `detector` (the main path's,
+    bf16) records its RPN head's and box predictor's outputs, and a CPU
+    TorchDetector runs the same frames with those in place of its own, so
+    both selections (top-k, decode, the RPN NMS over packed levels and
+    -inf pads, the class offsets, the class NMS, the gathers) start from
+    the same values; the overlapping pairs (IoU > the box NMS's threshold)
+    of other classes that both survive count the class offsets' work.
+    (2) The entry point end to end: float32 on the card (no TF32) and on
+    the CPU, each with its own heads."""
+    frames = noise_frames(DETECTOR_VIEWS, SEED + 1)
+    cpu = load_detector(str(pth), device="cpu")
+    heads = lambda d: (d.model.rpn.head, d.model.roi_heads.box_predictor)  # noqa: E731
+    recorded = ([], [])
+    with forward_hooks(heads(detector), [lambda m, i, o, r=r: r.append(_on_cpu(o))
+                                         for r in recorded]):
+        got = detector(frames)
+    t0 = time.perf_counter()
+    with forward_hooks(heads(cpu), [lambda m, i, o, r=r: r.pop() for r in recorded]):
+        want = cpu(frames)
+    cpu_s = time.perf_counter() - t0
+    select_missing, cross = [], 0
+    for g, w in zip(got, want):
+        select_missing += unmatched_detections(g, w, SELECT_SCORE_ATOL, SELECT_BOX_ATOL)
+        iou = box_iou_np(w["boxes"], w["boxes"])
+        cross += int(((iou > cpu.model.box_nms_thresh)
+                      & (w["classes"][:, None] < w["classes"][None])).sum())
+    classes = sorted({int(c) for d in want for c in d["classes"]})
+    n_select = sum(len(d["scores"]) for d in want)
+    log(f"[detector] the card's bf16 selection vs the CPU's on the card's head outputs, "
+        f"{len(frames)} noise frames at {IMAGE_SIZE} px: {n_select} detections, "
+        f"{len(select_missing)} without a twin; classes {classes}; {cross} overlapping "
+        f"pairs of other classes kept (CPU {cpu_s:.2f} s)")
+    if select_missing or n_select == 0:
+        raise AssertionError(f"the card's selection vs the CPU's on the same head outputs: "
+                             f"{n_select} detections, without a twin {select_missing[:10]}")
+    if len(classes) < 2 or cross == 0:
+        raise AssertionError(f"the class NMS's offsets had no work: classes {classes}, "
+                             f"{cross} overlapping pairs of other classes")
+
+    card = load_detector(str(pth))
+    card.dtype = torch.float32  # the card's bf16 default, off for this comparison
+    with no_tf32():
+        got = card(frames)
+    want = cpu(frames)
+    cap = cpu.model.max_detections
+    missing, held = [], 0
+    for g, w in zip(got, want):
+        floor = float(w["scores"].min()) + 2 * CPU_SCORE_ATOL if len(w["scores"]) == cap else 0.0
+        missing += unmatched_detections(g, w, CPU_SCORE_ATOL, CPU_BOX_ATOL, floor)
+        held += int((w["scores"] > floor).sum())
+    twinned = 1 - len(missing) / max(1, held)
+    log(f"[detector] end to end through load_detector, float32 card vs CPU on the same "
+        f"frames: {held} detections held, {len(missing)} without a twin ({twinned:.4%} "
+        f"twinned): {missing[:4]}")
+    if held == 0 or twinned < E2E_MIN_TWINNED:
+        raise AssertionError(f"float32 card vs CPU end to end on noise frames: {held} held, "
+                             f"without a twin {missing[:10]}")
+    return {"frames": len(frames), "selection_detections": n_select,
+            "selection_unmatched": len(select_missing), "classes": classes,
+            "cross_class_overlaps": cross, "e2e_held": held, "e2e_unmatched": len(missing),
+            "e2e_twinned": twinned, "cpu_seconds": cpu_s}
+
+
+def detector_counts() -> dict:
+    return {"identity": rn.LAUNCHES["identity", "bfloat16"], "nms": det_boxes.LAUNCHES["nms"]}
+
+
+def clear_counts() -> None:
+    rn.LAUNCHES.clear()
+    det_boxes.LAUNCHES.clear()
+
+
+def detector_calls(pth: Path, images: np.ndarray) -> dict:
+    """Phase 11 (a): the detector at full width loaded through
+    load_detector, on a 12-view stop and 4 frames; bf16 against float32 on
+    the card, float32 card against the CPU; ms a 12-view call, images/s at
+    B = 4 and 32, the profiled busy share and peak memory."""
+    detector = load_detector(str(pth))
+    views, frames = images[:DETECTOR_VIEWS], images[DETECTOR_VIEWS:]
+    detector(views)  # the first call's cuDNN plans and kernel loads
+    torch.cuda.synchronize()
+    # the main path: counts from 0, one 12-view call and one of 4 frames
+    clear_counts()
+    got = detector(views) + detector(frames)
+    launches = detector_counts()
+    if launches != {"identity": 2, "nms": 4}:
+        raise AssertionError(f"2 detector calls launched {launches}, not one bf16 identity "
+                             f"kernel and two NMS kernels each")
+
+    sd = convert_maskrcnn(torch.load(pth, weights_only=True))
+    models = [MaskRCNN(), MaskRCNN()]
+    for m in models:
+        m.load_state_dict(sd, strict=True)
+    f32_model = models[0].cuda().eval().to(memory_format=torch.channels_last)
+    t0 = time.perf_counter()
+    cpu = detector_stages(models[1].eval(), images, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    card32 = detector_stages(f32_model, images, "cuda", torch.float32, cpu["proposals"])
+    card16 = detector_stages(detector.model, images, "cuda", torch.bfloat16, cpu["proposals"])
+    vs_cpu, vs_f32 = compare_stages(card32, cpu), compare_stages(card16, card32)
+    if not (vs_cpu["feature_rel_err"] <= CPU_FEATURE_RTOL
+            and vs_cpu["prob_max_abs_diff"] <= CPU_SCORE_ATOL
+            and vs_cpu["box_max_abs_diff"] <= CPU_BOX_ATOL
+            and vs_cpu["top_class_differs"] == 0):
+        raise AssertionError(f"float32 card vs CPU, stage by stage: {vs_cpu}")
+    if not (vs_f32["feature_rel_err"] <= BF16_FEATURE_RTOL
+            and vs_f32["prob_max_abs_diff"] <= BF16_SCORE_ATOL
+            and vs_f32["box_min_iou"] >= BF16_MIN_IOU):
+        raise AssertionError(f"bf16 vs float32 card, stage by stage: {vs_f32}")
+    n_bf16 = sum(int((d["scores"] > BF16_MIN_SCORE).sum()) for d in got)
+    if n_bf16 == 0:
+        raise AssertionError(f"no bf16 detection above {BF16_MIN_SCORE}")
+    noise = noise_checks(pth, detector)
+    # end to end on the renders and frames, counted: detections with a
+    # twin in the other run
+    cpu_missing = [m for g, w in zip(card32["dets"], cpu["dets"]) for m in unmatched_detections(
+        g, w, CPU_SCORE_ATOL, CPU_BOX_ATOL)]
+    n_f32 = sum(len(d["scores"]) for d in card32["dets"])
+    cpu_matched = 1 - len(cpu_missing) / max(1, n_f32 + sum(len(d["scores"])
+                                                             for d in cpu["dets"]))
+    bf16_missing = [m for g, w in zip(got, card32["dets"]) for m in bf16_unmatched(g, w)]
+    bf16_matched = 1 - len(bf16_missing) / max(1, sum(
+        int((d["scores"] > BF16_MIN_SCORE + BF16_SCORE_ATOL).sum())
+        for d in got + card32["dets"]))
+    classes = sorted({int(c) for d in got for c in d["classes"]})
+    log(f"[detector] maskrcnn_resnet50_fpn ({sum(p.numel() for p in detector.model.parameters())}"
+        f" params, seeded) at {IMAGE_SIZE} px through load_detector: a 12-view stop and "
+        f"{DETECTOR_FRAMES} frames launched {launches}; {sum(len(d['scores']) for d in got)} bf16 "
+        f"detections (classes {classes}), {n_bf16} above {BF16_MIN_SCORE}")
+    log(f"[detector] float32 card vs CPU on the CPU's {vs_cpu['proposals']} proposals: FPN "
+        f"maps {vs_cpu['feature_rel_err']:.3g} relative, probabilities within "
+        f"{vs_cpu['prob_max_abs_diff']:.3g}, boxes within {vs_cpu['box_max_abs_diff']:.3g} px, "
+        f"top classes equal on {vs_cpu['top_class_compared']}; end to end {cpu_matched:.2%} of "
+        f"{n_f32} detections twinned (CPU stages {cpu_s:.2f} s)")
+    log(f"[detector] bf16 vs float32 card on the same proposals: FPN maps "
+        f"{vs_f32['feature_rel_err']:.3g} relative, probabilities within "
+        f"{vs_f32['prob_max_abs_diff']:.3g}, boxes IoU >= {vs_f32['box_min_iou']:.4f}; end to "
+        f"end {bf16_matched:.2%} of the detections above {BF16_MIN_SCORE} twinned")
+
+    # timing on the host clock around synchronous calls (each ends in its
+    # one device-to-host copy)
+    def wall_ms(batch, reps):
+        detector.run(batch)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            detector.run(batch)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    stop_ms = wall_ms(views, 10)
+    rates = {}
+    torch.cuda.reset_peak_memory_stats()
+    for b in DETECTOR_RATE_BATCHES:
+        batch = np.concatenate([images] * (b // len(images) + 1))[:b]
+        rates[b] = b / wall_ms(batch, 5) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: detector.run(views), calls=5)
+    log_profile("detector, a 12-view call (bf16)", prof)
+    nms_ms = sum(us for name, (n, us) in prof["by_name"].items()
+                 if "nms_kernel" in name) / prof["calls"] / 1e3
+    log(f"[detector] {stop_ms:.4f} ms a 12-view call (median of 10); images/s "
+        + ", ".join(f"{v:.1f} at B = {b}" for b, v in rates.items())
+        + f"; NMS kernels {nms_ms:.4f} ms of a 12-view call; peak device memory "
+          f"{peak:.2f} GiB (B = 32)")
+    return {"launches": launches, "ms_per_12_view_call": stop_ms,
+            "images_per_s": {str(b): v for b, v in rates.items()}, "peak_gib": peak,
+            "busy_share": prof["busy_share"] if prof["by_name"] else None,
+            "device_ms_per_call": prof["device_ms"], "nms_ms_per_call": nms_ms,
+            "bf16_detections_above": n_bf16, "f32_detections": n_f32, "classes": classes,
+            "f32_card_vs_cpu": vs_cpu, "bf16_vs_f32_card": vs_f32,
+            "end_to_end_twinned": {"f32_card_vs_cpu": cpu_matched, "bf16_vs_f32": bf16_matched},
+            "noise_frames": noise,
+            "cpu_seconds": cpu_s}
+
+
+def detection_cli_chain(tmp: Path, pth: Path) -> dict:
+    """Phase 11 (b): the detection CLI over the committed fixture frames
+    (an episode dataset of links to them, tests/torch_qdata.py
+    make_episodes), then the process_episodes CLI on its output."""
+    location = torch_qdata.make_episodes(tmp / "episodes", videos=3, frames=40, seed=SEED)
+    (Path(location) / "frames" / "real_detections_raw.npy").unlink()
+    clear_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = detect_real_videos.main(["--location", location, "--weights", str(pth)])
+    seconds = time.perf_counter() - t0
+    launches = detector_counts()
+    dets = np.load(out, allow_pickle=True)[()]
+    n_frames = sum(len(v) for v in dets.values())
+    n_files = len(list((Path(location) / "frames").rglob("*.jpg")))
+    calls = sum(-(-len(list((Path(location) / "frames" / v).glob("*.jpg"))) // 4) for v in dets)
+    hits = sum(s is not None for v in dets.values() for a in v.values() for s in a[:, 1])
+    if n_frames != n_files or hits == 0 or launches != {"identity": calls, "nms": 2 * calls}:
+        raise AssertionError(f"detection CLI: {n_frames} frames of {n_files} files, {hits} "
+                             f"class hits, launches {launches} for {calls} calls")
+    with contextlib.redirect_stdout(io.StringIO()):
+        feather = process_episodes.main(["--location", location])
+    table = read_feather(feather)
+    rows = len(next(iter(table.values())))
+    if rows == 0:
+        raise AssertionError("process_episodes wrote no rows from the detections")
+    log(f"[detector] detection CLI over {n_frames} fixture frames ({len(dets)} videos, batch "
+        f"4): {seconds:.2f} s, {n_frames / seconds:.1f} frames/s with decode, {hits} "
+        f"target-class hits, launches {launches}; process_episodes on its output: {rows} rows")
+    return {"launches": launches, "frames": n_frames, "seconds": seconds,
+            "frames_per_s": n_frames / seconds, "target_hits": hits, "feather_rows": rows}
+
+
+def fused_eval_run(tmp: Path, pth: Path) -> dict:
+    """Phase 11 (c): the evaluate CLI with COMBINE_DETECTOR and the seeded
+    detector beside the published Q-net (--workload 4 --batched 4) on the
+    fake env: one detector call a stop, bumps that happen, episodes/s and
+    the detector's share of a stop."""
+    ckpt = tmp / "qnet.torch"
+    seeded_checkpoint(ckpt, published_config())
+    cfg_path = write_eval_config(tmp, ckpt, "fused")
+    text = Path(cfg_path).read_text() + "\n".join(_yaml({
+        "COMBINE_DETECTOR": True, "CONFIDENCE_THRESHOLD": FUSION_THRESHOLD,
+        "DETECTOR_WEIGHTS": str(pth)})) + "\n"
+    Path(cfg_path).write_text(text)
+    built, fusions = [], []
+    build, fuse = evaluate_cli.build_detector_from_config, evaluate_mod.fuse_detector_scores
+
+    def build_spy(*a, **kw):
+        built.append(build(*a, **kw))
+        return built[-1]
+
+    def fuse_spy(scores, *a, **kw):
+        t0 = time.perf_counter()
+        out = fuse(scores, *a, **kw)
+        fusions.append((time.perf_counter() - t0, int((out != scores).sum())))
+        return out
+
+    evaluate_cli.build_detector_from_config = build_spy
+    evaluate_mod.fuse_detector_scores = fuse_spy
+    try:
+        clear_counts()
+        with EvalClock(FakeNavEnv) as clock:
+            t0 = time.perf_counter()
+            mean = eval_cli(cfg_path, DETECTOR_EPISODES, DETECTOR_EPISODES)
+            wall = time.perf_counter() - t0
+        launches = detector_counts()
+    finally:
+        evaluate_cli.build_detector_from_config = build
+        evaluate_mod.fuse_detector_scores = fuse
+    detector = built[0]
+    stops, calls = len(clock.stops), len(clock.calls)
+    bumps = sum(b for _, b in fusions)
+    if not isinstance(detector, TorchDetector) or detector.calls != stops or stops == 0:
+        raise AssertionError(f"Detector calls {getattr(detector, 'calls', None)}, stops {stops}")
+    if bumps == 0:
+        raise AssertionError(f"{stops} fused stops and no score bumped")
+    if launches != {"identity": calls + stops, "nms": 2 * stops}:
+        raise AssertionError(f"{calls} score calls and {stops} detector calls launched "
+                             f"{launches}")
+    table = clock.stop_table()
+    detector_ms = float(np.median([s for s, _ in fusions])) * 1e3
+    share = detector_ms / table["total"]["median"]
+    log(f"[detector] evaluate CLI, COMBINE_DETECTOR (threshold {FUSION_THRESHOLD}) with the "
+        f"published Q-net, {DETECTOR_EPISODES} fake-env episodes, {DETECTOR_EPISODES} in "
+        f"flight: {wall:.2f} s, {DETECTOR_EPISODES / wall:.4f} episodes/s, mean SPL {mean:.4f}; "
+        f"{stops} stops = Detector calls {detector.calls}, {bumps} views bumped; launches "
+        f"{launches}; a stop (median) {table['total']['median']:.4f} ms, its detector call "
+        f"{detector_ms:.4f} ms, a share of {share:.4f}")
+    return {"launches": launches, "episodes": DETECTOR_EPISODES, "wall_s": wall,
+            "episodes_per_s": DETECTOR_EPISODES / wall, "mean_spl": mean, "stops": stops,
+            "detector_calls": detector.calls, "score_calls": calls, "bumped_views": bumps,
+            "ms_per_stop": table, "detector_ms_per_stop": detector_ms,
+            "detector_share_of_stop": share}
+
+
+def detector_path() -> dict:
+    """Phase 11: (a) the detector's calls, (b) the detection CLI into
+    process_episodes, (c) a fused evaluation run. launches sums the three
+    main-path runs, each counted from 0."""
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        pth = tmp / "maskrcnn_seeded.pth"
+        detector_weights(pth)
+        out = {"calls": detector_calls(pth, detector_images()),
+               "cli": detection_cli_chain(tmp, pth), "fused_eval": fused_eval_run(tmp, pth)}
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in ("calls", "cli", "fused_eval"))
+                       for k in ("identity", "nms")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[detector] phase 11 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> None:
     environment()
     build()
     rows = kernel_vs_plain()
+    nms_rows = nms_vs_plain()
     serve = serving_path()
     train = train_path()
     real = real_data_path()
@@ -2005,6 +2620,7 @@ def main() -> None:
     inv.pop("tmp")
     ev = eval_path()
     ev_mesh = mesh_eval_path()
+    det = detector_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -2019,7 +2635,7 @@ def main() -> None:
             "launches": (serve["launches"][path] + train["launches"][path]
                          + real["launches"][path] + inv["launches"][path]
                          + label["launches"][path] + ev["launches"][path]
-                         + ev_mesh["launches"][path]),
+                         + ev_mesh["launches"][path] + det["launches"].get(path, 0)),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
@@ -2027,6 +2643,7 @@ def main() -> None:
             "launches_label": label["launches"][path],
             "launches_eval": ev["launches"][path],
             "launches_eval_mesh": ev_mesh["launches"][path],
+            "launches_detector": det["launches"].get(path, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -2035,6 +2652,25 @@ def main() -> None:
             "library_ms": None,
             "shapes": mine,
         })
+    # the main path's call: the RPN's NMS of a 12-view stop
+    main_row = next(r for r in nms_rows if r["case"] == f"rpn_b{max(DETECTOR_BATCHES)}")
+    kernels.append({
+        "name": "nms",
+        "route": "cuda",
+        "source": "video_dqn_tpu_torch/csrc/nms.cu",
+        "replaces": "video_dqn_tpu/models/detector/boxes.py:115",
+        "launches": det["launches"]["nms"],
+        **{f"launches_{p}": 0 for p in ("serve", "train", "real_data", "inverse", "label",
+                                        "eval", "eval_mesh")},
+        "launches_detector": det["launches"]["nms"],
+        "max_abs_err": 0.0,
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "shapes": nms_rows,
+    })
     log(json.dumps({"serve": serve}))
     log(json.dumps({"train": train}))
     log(json.dumps({"real_data": real}))
@@ -2042,6 +2678,7 @@ def main() -> None:
     log(json.dumps({"label": label}))
     log(json.dumps({"eval": ev}))
     log(json.dumps({"eval_mesh": ev_mesh}))
+    log(json.dumps({"detector": det}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -241,13 +241,40 @@ def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
 @pytest.mark.parametrize("over", [{"SCORE": "detector"}, {"COMBINE_DETECTOR": True},
                                   {"CHASE_DETECTOR": True}, {"DETECTOR_WEIGHTS": "stub"}],
                          ids=["score", "combine", "chase", "weights"])
-def test_detector_configs_raise_naming_item_7(over):
-    _, cfg = cfgs(**over)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_detector_from_config(cfg)
-    env, house, ep = make_env_and_episode()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ours_evaluate(cfg, env, ep, house, 0, make_geodesic_scorer(env), device="cpu")
+def test_detector_configs_raise_naming_item_7(over, tmp_path, capsys):
+    """Detector configs raised until ROADMAP item 7 was ported. Now each
+    builds what the JAX package builds: the stub for DETECTOR_WEIGHTS:
+    'stub' with SCORE: detector or COMBINE_DETECTOR, nothing for
+    CHASE_DETECTOR (it only names the run) or the weights alone; the
+    episode's step log and the "Detector calls" line equal JAX's. A
+    detector mode without DETECTOR_WEIGHTS raises ValueError in both."""
+    from video_dqn_tpu.eval import build_detector_from_config as jax_build_detector
+
+    want_cfg, got_cfg = cfgs(**{"SLAM": True, "SEED": 1, "STOP": True,
+                                "DETECTOR_WEIGHTS": "stub", **over})
+    got_det, want_det = build_detector_from_config(got_cfg, "cpu"), jax_build_detector(want_cfg)
+    assert type(got_det).__name__ == type(want_det).__name__
+    assert (got_det is None) == ("SCORE" not in over and "COMBINE_DETECTOR" not in over)
+    want_cfg.RESULT_LOCATION = str(tmp_path / "jax")
+    got_cfg.RESULT_LOCATION = str(tmp_path / "port")
+    want_eps, want_env, want_house = jax_episode_set(1, size=32, seed=4)
+    got_eps, got_env, got_house = make_episode_set(1, size=32, seed=4)
+    calls = []
+    capsys.readouterr()
+    jax_run_policy(want_cfg, want_eps, env_factory=want_env, house_factory=want_house,
+                   scorer_factory=lambda env, ci: jax_geodesic(env), visualize_every=10 ** 9)
+    calls.append([ln for ln in capsys.readouterr().out.splitlines() if "Detector" in ln])
+    run_policy(got_cfg, got_eps, env_factory=got_env, house_factory=got_house,
+               scorer_factory=lambda env, ci: make_geodesic_scorer(env), device="cpu")
+    calls.append([ln for ln in capsys.readouterr().out.splitlines() if "Detector" in ln])
+    assert_same_logs(read_results(got_cfg, DiskReader), read_results(want_cfg, JaxDiskReader))
+    assert calls[0] == calls[1] and len(calls[0]) == (got_det is not None)
+    if got_det is not None:
+        want_cfg.DETECTOR_WEIGHTS = got_cfg.DETECTOR_WEIGHTS = ""
+        for build in (lambda: build_detector_from_config(got_cfg, "cpu"),
+                      lambda: jax_build_detector(want_cfg)):
+            with pytest.raises(ValueError, match="DETECTOR_WEIGHTS"):
+                build()
     assert build_detector_from_config(get_eval_defaults()) is None
 
 

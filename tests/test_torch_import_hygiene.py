@@ -30,6 +30,8 @@ from video_dqn_tpu_torch.eval.batched_runner import run_policy_batched
 from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults
 from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
+from video_dqn_tpu_torch.models.detector.inference import load_detector
+from video_dqn_tpu_torch.detect_real_videos import main as detect_cli
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,7 +53,10 @@ def test_every_module_imports_with_jax_blocked():
                  "sim.gibson", "sim.native_render", "sim.fake_env", "eval.policy_config",
                  "eval.evaluate", "eval.runner", "eval.batched_runner", "eval.fixtures",
                  "eval.results", "evaluate", "results", "sim.config", "sim.ply",
-                 "sim.meshgen", "sim.native_mesh", "sim.mesh_twin", "sim.mesh_env"):
+                 "sim.meshgen", "sim.native_mesh", "sim.mesh_twin", "sim.mesh_env",
+                 "models.detector.boxes", "models.detector.roi_align",
+                 "models.detector.maskrcnn", "models.detector.convert",
+                 "models.detector.inference", "detect_real_videos"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -69,9 +74,10 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_sources_name_no_jax():
     files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cc"),
-             ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py"]
-    assert {"jpeg_decode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc", "mesh.cc"} <= \
-        {f.name for f in files}
+             ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py",
+             ROOT / "tests/torch_detector_util.py"]
+    assert {"jpeg_decode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc", "mesh.cc",
+            "resize_normalize.cu", "nms.cu"} <= {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -113,12 +119,15 @@ EVAL_CFG = get_eval_defaults()
     lambda: evaluate_cli(["--fake-env", "no_such.yml"]),
     lambda: evaluate_cli(["--furnished-env", "--workload", "1", "no_such.yml"]),
     lambda: results_cli(["no_such.yml"]),
+    lambda: load_detector("no_such.pth"),
+    lambda: detect_cli(["--stub", "--location", "no_such_folder"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
         "run_inverse_train", "train_inverse_model_main", "make_inverse_labeler",
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
-        "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main"])
+        "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main",
+        "load_detector", "detect_real_videos_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -11,19 +11,22 @@ Layout:
   _device.py  resolve_device: CUDA unless the caller asks for the CPU
   _build.py   builds of csrc/ (nvcc) and csrc/host/ (c++) into shared
               libraries, loaded by ctypes
-  csrc/       hand-written CUDA kernels for sm_90a; csrc/host/ the host
-              library: the baseline JPEG decoder, the LZ4 frame decoder,
-              the FMM solver and the fake env's raycaster
+  csrc/       hand-written CUDA kernels for sm_90a (resize+normalize,
+              NMS); csrc/host/ the host library: the baseline JPEG
+              decoder, the LZ4 frame decoder, the FMM solver and the
+              raycasters
   ops/        ImageNet normalize; the fused uint8 resize+normalize kernel;
               depth geometry and binning into the map, morphology, FMM
-  models/     ResNet18, the HabitatDQN Q-net, the weight and Adam-state
-              bridge to and from the JAX package's Flax layout
+  models/     ResNet18, the HabitatDQN Q-net, the inverse model, the
+              Mask R-CNN detector (models/detector/), the weight and
+              Adam-state bridge to and from the JAX package's Flax layout
   core/       config trees and the YAML subset, experiment folders,
               metrics.jsonl, sample<N>.ckpt in Flax's msgpack, host prefetch
   data/       the feather (Arrow IPC) reader, the JPEG stage, the
               QLearningBatcher, the device-resident dataset and its host twin
   train/      the double-DQN and inverse-model train steps and loops
-  train_q_network.py, train_inverse_model.py, process_episodes.py  CLIs
+  train_q_network.py, train_inverse_model.py, process_episodes.py,
+  detect_real_videos.py  CLIs
   plan/       the occupancy mapper and the FMM planners
   sim/        the fake raycasting env and the Gibson house metadata
   eval/       panorama scorers, the eval model loader, the episode policy,

@@ -2,13 +2,15 @@
 
 Two shared libraries with plain C interfaces, each built at first use from
 the sources in the package only, into _build/, and loaded with ctypes:
-  * the CUDA kernels: every csrc/*.cu, compiled by nvcc for sm_90a into
-    _build/libvdqn_kernels.so (`build`, `load`);
+  * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS), compiled
+    by nvcc for sm_90a into _build/libvdqn_kernels.so (`build`, `load`);
   * the host library: every csrc/host/*.cc (the JPEG decode stage, the
     LZ4 frame decoder, the FMM solver, the fake env's raycaster and the
     mesh simulator's BVH raycaster),
     compiled by the system C++ compiler into
     _build/libvdqn_host.so (`build_host`, `load_host`).
+Each source compiles in a compiler process of its own, all started
+together, and the objects are then linked into the library.
 Each is rebuilt when it is older than one of its sources. A file lock
 keeps two processes from building the same library at once, and each
 build writes a temporary file of its own that replaces the library in one
@@ -31,11 +33,11 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # -march=native as the JAX package's native/ Makefiles build: with FMA the
 # compiler contracts a*b + c, and the FMM and the raycaster then give the
 # JAX package's bits
-CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -58,7 +60,8 @@ class _Library:
     path: Path
     source_dir: Path
     patterns: Tuple[str, ...]  # sources first, then the headers they include
-    command: Callable[[Path, List[Path]], List[str]]
+    compile: Callable[[Path, Path], List[str]]  # (source, object) -> command
+    link: Callable[[Path, List[Path]], List[str]]  # (library, objects) -> command
     # C entry -> (argtypes, restype)
     signatures: Dict[str, Tuple[list, type]]
     handle: object = field(default=None, repr=False)
@@ -78,14 +81,32 @@ class _Library:
         """Compile the sources into the library and return the compiler's
         output. Raises on failure."""
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = self.path.with_name(f"{self.path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        proc = subprocess.run(self.command(tmp, self.sources()), capture_output=True, text=True)
+        tag = f"{os.getpid()}.{threading.get_ident()}"
+        tmp = self.path.with_name(f"{self.path.name}.{tag}.tmp")
+        sources = self.sources()
+        objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        try:
+            procs = [(src, subprocess.Popen(self.compile(src, obj), stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+                     for src, obj in zip(sources, objects)]
+            output, failed = "", []
+            for src, proc in procs:
+                text = proc.communicate()[0]
+                output += text
+                if proc.returncode != 0:
+                    failed.append(f"{src.name} (code {proc.returncode}):\n{text}")
+            if failed:
+                raise RuntimeError(f"building {self.path.name} failed: " + "\n".join(failed))
+            proc = subprocess.run(self.link(tmp, objects), capture_output=True, text=True)
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"building {self.path.name} failed with code "
                                f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, self.path)
-        return proc.stdout + proc.stderr
+        return output + proc.stdout + proc.stderr
 
     def load(self) -> ctypes.CDLL:
         """The library, built first if it is missing or older than a
@@ -107,15 +128,19 @@ class _Library:
 
 
 # Each kernel entry takes one pointer to its argument struct
-# (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`).
+# (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`;
+# models/detector/boxes.py `_NmsArgs`).
 KERNELS = _Library(
     BUILD_DIR / "libvdqn_kernels.so", CSRC, ("*.cu", "*.cuh"),
-    lambda out, srcs: [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)],
+    lambda src, obj: [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    lambda out, objs: [_nvcc(), "-shared", "-o", str(out), *map(str, objs)],
     {"vdqn_resize_normalize_identity": ([ctypes.c_void_p], ctypes.c_int),
-     "vdqn_resize_normalize_banded": ([ctypes.c_void_p], ctypes.c_int)})
+     "vdqn_resize_normalize_banded": ([ctypes.c_void_p], ctypes.c_int),
+     "vdqn_nms": ([ctypes.c_void_p], ctypes.c_int)})
 HOST = _Library(
     BUILD_DIR / "libvdqn_host.so", CSRC / "host", ("*.cc", "*.h"),
-    lambda out, srcs: [_cxx(), *CXX_FLAGS, "-o", str(out), *map(str, srcs)],
+    lambda src, obj: [_cxx(), *CXX_FLAGS, "-c", "-o", str(obj), str(src)],
+    lambda out, objs: [_cxx(), "-shared", "-pthread", "-o", str(out), *map(str, objs)],
     {"vdqn_jpeg_decode_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
      "vdqn_lz4_frame_decode": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,

@@ -26,7 +26,6 @@ from ..core.disk_logger import DiskLogger, DiskReader
 from ..sim.gibson import CLASS_LABELS, relevant_locations
 from .evaluate import episode_generator
 from .policy_config import name_from_config
-from .runner import build_detector_from_config
 
 
 def run_policy_batched(
@@ -36,6 +35,7 @@ def run_policy_batched(
     house_factory: Callable,
     scorer: Callable,
     class_index_of=None,
+    detector=None,
     max_concurrent: int = 8,
     pipeline_depth: int = 1,
     host_workers: int = 0,
@@ -51,7 +51,9 @@ def run_policy_batched(
     episodes cannot share an env); scorer scores a (V, ...) uint8 batch
     for a given class via scorer(images, class_index) OR a plain
     per-batch scorer when class_index_of is None. Each episode maps on
-    `device` (None: the card).
+    `device` (None: the card). `detector`, when given, fuses into every
+    stop's scores under COMBINE_DETECTOR (the caller builds it: the
+    evaluate CLI from the config, as the JAX package's CLI does).
 
     `pipeline_depth` > 1 splits the in-flight episodes into that many
     cohorts and software-pipelines them: while one cohort's fused view
@@ -85,7 +87,6 @@ def run_policy_batched(
     final summary).
     """
     device = resolve_device(device)
-    build_detector_from_config(config)
     log_folder = os.path.join(config.RESULT_LOCATION, name_from_config(config))
     logger = DiskLogger(log_folder, checkpoint_time=60 * 30)
 
@@ -114,7 +115,8 @@ def run_policy_batched(
         )
         env.set_agent_state(pos, rot)
         gen = episode_generator(
-            config, env, ep, house, epind, visualize=False, device=device,
+            config, env, ep, house, epind, visualize=False, detector=detector,
+            device=device,
         )
         ci = CLASS_LABELS.index(class_label)
         try:

@@ -17,18 +17,21 @@ occupancy map, value-scored waypoints, FMM navigation, SPL accounting
     travel, success when the geodesic distance is < 1 m: SPL =
     min(goal_dist / dist_traveled, 1); STOP mode returns the step log
   * per-episode numpy rng seeded from config.SEED
-
-The detector fusion waits for ROADMAP.md queue 1, item 7: a config that
-asks for a detector raises.
+  * with COMBINE_DETECTOR and a detector, a stop's views are detected in
+    one call and a view whose target-class detection clears
+    CONFIDENCE_THRESHOLD gains (confidence + 1) on its score
+    (`fuse_detector_scores`)
 """
 
 from __future__ import annotations
 
+import inspect
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..data.detect import COCO_TARGET_IDS
 from ..plan.mapper import DepthMapperAndPlanner
 from ..sim.gibson import relevant_objects
 
@@ -37,18 +40,85 @@ MAX_STEPS = 500
 NUM_ROTATIONS = 12
 
 
-def refuse_detector(config) -> None:
-    """Raise if the config asks for the detector, which is not ported."""
-    asks = [name for name, on in (
-        ("SCORE: detector", config.SCORE == "detector"),
-        ("COMBINE_DETECTOR", bool(config.COMBINE_DETECTOR)),
-        ("CHASE_DETECTOR", bool(config.CHASE_DETECTOR)),
-        ("DETECTOR_WEIGHTS", bool(config.DETECTOR_WEIGHTS)),
-    ) if on]
-    if asks:
-        raise NotImplementedError(
-            f"the detector is not ported to video_dqn_tpu_torch yet (ROADMAP.md, "
-            f"queue 1, item 7); the config asks for it: {', '.join(asks)}")
+def _detector_batch_contract(detector, frames) -> Optional[List[Dict]]:
+    """Whether `detector` speaks the pipeline's batch contract,
+    `detector(batch) -> [{boxes, scores, classes}]`, resolved once per
+    detector object, and if so this stop's detections:
+      1. a callable with two or more required positional arguments is the
+         per-image contract `detector(im, class_label)` and never gets a
+         batch;
+      2. otherwise the first batch call catches only TypeError (a
+         signature mismatch) and checks the result's structure; the
+         verdict is cached on the detector;
+      3. every later call is unguarded, so that a real failure (out of
+         memory, a shape fault, bad weights) propagates instead of falling
+         back to per-image calls."""
+    cached = getattr(detector, "_vdqn_batch_contract", None)
+    if cached is False:
+        return None
+    if cached is True:
+        return detector(np.stack(frames))
+
+    batch_capable = True
+    try:
+        required = [p for p in inspect.signature(detector).parameters.values()
+                    if p.default is inspect.Parameter.empty
+                    and p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                                   inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+        batch_capable = len(required) <= 1
+    except (TypeError, ValueError):
+        pass  # no signature (a builtin): the probe decides
+
+    dets = None
+    if batch_capable:
+        try:
+            cand = detector(np.stack(frames))
+        except TypeError:
+            batch_capable = False
+        else:
+            if (isinstance(cand, list) and len(cand) == len(frames)
+                    and all(isinstance(d, dict) for d in cand)):
+                dets = cand
+            else:
+                raise TypeError(
+                    "detector accepted a batch but returned "
+                    f"{type(cand).__name__}, not a list of per-image dicts "
+                    "({boxes, scores, classes}); fix the detector's batch "
+                    "contract or give it a (im, class_label) signature")
+    try:
+        detector._vdqn_batch_contract = batch_capable
+    except (AttributeError, TypeError):
+        pass  # a callable that takes no attribute: probe again next stop
+    return dets
+
+
+def fuse_detector_scores(scores: np.ndarray, rgbs, detector, class_label: str,
+                         confidence_threshold: float) -> np.ndarray:
+    """Detector fusion: where the detector's best detection of the target
+    class in a view clears the threshold and its box reaches the centre
+    third (x1 <= 2/3 width or x2 >= 1/3 width), the view's score gains
+    (confidence + 1). A stop's views go to the detector in one batch call
+    where it takes batches, else one (im, class_label) call a view; the
+    result is the same either way."""
+    out = scores.copy()
+    frames = [np.asarray(im) for im in rgbs]
+    frames = [im[0] if im.ndim == 4 else im for im in frames]
+    dets = _detector_batch_contract(detector, frames)
+    if dets is not None:
+        cid = COCO_TARGET_IDS[class_label]
+    for i, frame in enumerate(frames):
+        size = frame.shape[1]
+        left_lim, right_lim = size // 3, (size * 2) // 3
+        if dets is not None:
+            mask = dets[i]["classes"] == cid
+            boxes, dscores = dets[i]["boxes"][mask], dets[i]["scores"][mask]
+        else:
+            boxes, dscores = detector(frame, class_label)
+        if len(dscores) > 0 and dscores.max() > confidence_threshold:
+            box = boxes[int(np.argmax(dscores))]
+            if box[0] <= right_lim or box[2] >= left_lim:
+                out[i] += dscores.max() + 1.0
+    return out
 
 
 def check_movement(env, start_ang: float, planner, rng) -> Optional[np.ndarray]:
@@ -93,6 +163,7 @@ def ours_evaluate(
     scorer: Callable,
     visualize: bool = False,
     model_config=None,
+    detector=None,
     planner: Optional[DepthMapperAndPlanner] = None,
     map_max_dim: Optional[float] = None,
     device=None,
@@ -102,7 +173,7 @@ def ours_evaluate(
     (eval/batched_runner.py) drives the same generator with fused score
     calls across episodes."""
     gen = episode_generator(
-        config, env, ep, house, epind, visualize, model_config, planner,
+        config, env, ep, house, epind, visualize, model_config, detector, planner,
         map_max_dim, score_dest=getattr(scorer, "score_dest", None), device=device,
     )
     try:
@@ -121,6 +192,7 @@ def episode_generator(
     epind: int,
     visualize: bool = False,
     model_config=None,
+    detector=None,
     planner: Optional[DepthMapperAndPlanner] = None,
     map_max_dim: Optional[float] = None,
     score_dest=None,
@@ -132,8 +204,8 @@ def episode_generator(
     the boundary, which is what lets a batched runner fuse the score calls
     of many episodes. Without a `planner`, one is made that maps on
     `device` (None: the card); `visualize` asks that planner for the
-    visualisation, which raises (ROADMAP.md, queue 1, item 8)."""
-    refuse_detector(config)
+    visualisation, which raises (ROADMAP.md, queue 1, item 8). With
+    COMBINE_DETECTOR, `detector` fuses into each stop's scores."""
     hn, floor, class_label, goal_dist, pos, rot = ep
 
     rng = np.random.default_rng(config.SEED)
@@ -195,6 +267,11 @@ def episode_generator(
             )
             planner.add_observations_batch(depths, np.array(locs, np.float32))
             scores = yield np.stack([v["rgb"] for v in views])
+            if detector is not None and config.COMBINE_DETECTOR:
+                scores = fuse_detector_scores(
+                    scores, [v["rgb"] for v in views], detector, class_label,
+                    config.CONFIDENCE_THRESHOLD,
+                )
             for k in range(NUM_ROTATIONS):
                 ang = locs[k][2]
                 dest = check_movement(env, ang, planner, rng)
@@ -211,6 +288,11 @@ def episode_generator(
                 )
                 dest = check_movement(env, loc[2], planner, rng)
                 sc = (yield np.asarray(ims["rgb"])[None])[0]
+                if detector is not None and config.COMBINE_DETECTOR:
+                    sc = fuse_detector_scores(
+                        np.array([sc]), [ims["rgb"]], detector, class_label,
+                        config.CONFIDENCE_THRESHOLD,
+                    )[0]
                 if dest is not None:
                     sc_k = float(sc)
                     if score_dest is not None:

@@ -66,8 +66,10 @@ def get_eval_defaults() -> ConfigNode:
             # score a stop's 12 views in one call (False: the reference's
             # per-view order)
             "BATCHED_REASONING": True,
-            # the fusion detector's weights; the detector waits for
-            # ROADMAP.md queue 1, item 7, so any non-empty value raises
+            # the fusion detector of COMBINE_DETECTOR / SCORE: detector: a
+            # torchvision maskrcnn_resnet50_fpn checkpoint for
+            # models/detector/inference.load_detector, or 'stub' for the
+            # deterministic test detector (eval/runner.py)
             "DETECTOR_WEIGHTS": "",
         }
     )

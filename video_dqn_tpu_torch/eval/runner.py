@@ -1,5 +1,6 @@
 """Episode-loop runner (counterpart of video_dqn_tpu/eval/runner.py
-`run_policy`, `build_detector_from_config`): walks the episode table,
+`run_policy`, `build_detector_from_config`): builds the fusion detector
+of the config, walks the episode table,
 reuses the env across episodes of the same house and logs each episode's
 result to crash-safe shards (core/disk_logger.py) under
 RESULT_LOCATION/<name_from_config>.
@@ -21,18 +22,32 @@ from ..core.disk_logger import DiskLogger, DiskReader
 from ..core.experiment import ExperimentConfig
 from ..sim.fake_env import FakeNavEnv
 from ..sim.gibson import CLASS_LABELS, get_house, relevant_locations
-from .evaluate import make_geodesic_scorer, ours_evaluate, refuse_detector
+from ..data.detect import StubDetector
+from ..models.detector.inference import load_detector
+from .evaluate import make_geodesic_scorer, ours_evaluate
 from .load import load_eval_model
 from .policy_config import name_from_config
 from .scorer import make_model_scorer
 
 
-def build_detector_from_config(config) -> None:
-    """The fusion detector of the config: None when it asks for none, and
-    otherwise a raise, since the detector is not ported yet (ROADMAP.md,
-    queue 1, item 7)."""
-    refuse_detector(config)
-    return None
+def build_detector_from_config(config, device=None):
+    """The fusion detector of the config, built once and reused across
+    episodes: None unless COMBINE_DETECTOR or SCORE: detector is on
+    (CHASE_DETECTOR only names the experiment); a ValueError when one is
+    on without DETECTOR_WEIGHTS; StubDetector for DETECTOR_WEIGHTS: 'stub';
+    else the Mask R-CNN of that torchvision checkpoint on `device` (None:
+    the card)."""
+    if not (config.COMBINE_DETECTOR or config.SCORE == "detector"):
+        return None
+    weights = config.DETECTOR_WEIGHTS if "DETECTOR_WEIGHTS" in config else ""
+    if not weights:
+        raise ValueError(
+            "COMBINE_DETECTOR/SCORE=='detector' needs DETECTOR_WEIGHTS in "
+            "the eval config: a torchvision maskrcnn_resnet50_fpn checkpoint "
+            "path or 'stub' for the deterministic test detector")
+    if weights == "stub":
+        return StubDetector()
+    return load_detector(weights, device=device)
 
 
 def load_scoring_model(config, device):
@@ -51,6 +66,7 @@ def run_policy(
     env_factory: Optional[Callable] = None,
     house_factory: Optional[Callable] = None,
     scorer_factory: Optional[Callable] = None,
+    detector=None,
     visualize_every: int = 0,
     debug: bool = False,
     episodes_path: str = "evaluation/val_episodes.npy",
@@ -67,13 +83,16 @@ def run_policy(
       house_factory:   name -> GibsonHouse-like (objects/object_locations)
       scorer_factory:  (env, class_index) -> view scorer; the default is
                        the model scorer with SCORE: model, else the
-                       geodesic oracle
+                       geodesic oracle (SCORE: detector too)
+      detector:        the fusion detector; the default is
+                       build_detector_from_config's
     `visualize_every` > 0 would visualise every that many episodes, which
     raises (ROADMAP.md, queue 1, item 8); 0, the default, never does.
     """
     device = resolve_device(device)
     np.random.seed(config.SEED)
-    build_detector_from_config(config)
+    if detector is None:
+        detector = build_detector_from_config(config, device)
 
     log_folder = os.path.join(config.RESULT_LOCATION, name_from_config(config))
     logger = DiskLogger(log_folder, checkpoint_time=60 * 30)
@@ -130,10 +149,15 @@ def run_policy(
 
         vis = visualize_every > 0 and epind % visualize_every == 0
         out = ours_evaluate(
-            config, env, ep, house, epind, scorer, vis, model_config, device=device,
+            config, env, ep, house, epind, scorer, vis, model_config,
+            detector=detector, device=device,
         )
         if not debug:
             logger.write(epind, out)
     if env is not None:
         env.close()
+    calls = getattr(detector, "calls", None)
+    if calls is not None:
+        # one fused call a reasoning stop: stops per episode, read off the log
+        print(f"Detector calls: {calls}", flush=True)
     return logger

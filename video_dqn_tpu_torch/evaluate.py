@@ -39,7 +39,7 @@ from .eval.batched_runner import run_policy_batched
 from .eval.fixtures import make_env_and_episode, make_episode_set, make_mesh_env_and_episode
 from .eval.policy_config import load_file, name_from_config
 from .eval.results import display_results
-from .eval.runner import load_scoring_model, run_policy
+from .eval.runner import build_detector_from_config, load_scoring_model, run_policy
 from .eval.scorer import make_multiclass_scorer
 
 
@@ -158,6 +158,7 @@ def main(argv: Optional[List[str]] = None, device=None):
             env_factory=lambda h, c: kwargs["env_factory"](h, mc, c),
             house_factory=kwargs["house_factory"],
             scorer=scorer, class_index_of=True,
+            detector=build_detector_from_config(config, device),
             max_concurrent=int(args.batched),
             pipeline_depth=int(args.pipeline_depth),
             host_workers=int(args.host_workers),

@@ -20,6 +20,14 @@ Adam's moments change layout as their parameters do, so optax's
 of the inverse trainer's chains, optax.adam(schedule) and
 optax.adamw(schedule, wd).
 
+The detector (models/detector/maskrcnn.py) has a table too
+(`_maskrcnn_entries`, read by `maskrcnn_state_dict_from_flax`): the
+ResNet-50 body, FPN, RPN head, box head (fc6 with the (7, 7, 256) <->
+(256, 7, 7) reorder) and optional mask head of the JAX package's MaskRCNN
+tree, under torchvision's names. Its transposed conv's taps are mirrored
+on the way: Flax's ConvTranspose (transpose_kernel=False) applies its
+kernel unflipped, where torch's ConvTranspose2d flips it.
+
 The inverse model (models/inverse.py) has a table of its own
 (`_inverse_entries`): the trunk as `resnet18.{0,1,4,5,6,7}.*` under the
 Flax `resnet`, the head convs, `fc1` with the same (H, W, C) <-> (C, H, W)
@@ -157,6 +165,64 @@ def _inverse_entries(side: int) -> List[_Entry]:
                         ("fc_accuracy", _DENSE)):
         out += [_Entry("params", f"{dense}.weight", (dense, "kernel"), *maps),
                 _Entry("params", f"{dense}.bias", (dense, "bias"), *_VEC)]
+    return out
+
+
+def _convt_to_torch(k: np.ndarray) -> np.ndarray:
+    # Flax (kh, kw, in, out) -> torch (in, out, kh, kw), taps mirrored
+    return np.ascontiguousarray(k[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def _convt_to_flax(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])
+
+
+def _conv_bias(torch_name: str, flax_path: Tuple[str, ...]) -> List[_Entry]:
+    return [_Entry("params", f"{torch_name}.weight", flax_path + ("kernel",), *_CONV),
+            _Entry("params", f"{torch_name}.bias", flax_path + ("bias",), *_VEC)]
+
+
+def _dense_bias(torch_name: str, flax_path: Tuple[str, ...], maps=_DENSE) -> List[_Entry]:
+    return [_Entry("params", f"{torch_name}.weight", flax_path + ("kernel",), *maps),
+            _Entry("params", f"{torch_name}.bias", flax_path + ("bias",), *_VEC)]
+
+
+def _maskrcnn_entries(with_masks: bool) -> List[_Entry]:
+    """Every tensor of the port's MaskRCNN once, under torchvision's
+    (>= 0.13) name, with its path in the JAX package's MaskRCNN tree."""
+    body = "backbone.body"
+    out = [_Entry("params", f"{body}.conv1.weight", ("body", "conv1", "kernel"), *_CONV)]
+    out += _bn(f"{body}.bn1", ("body", "bn1"))
+    for stage, n_blocks in enumerate((3, 4, 6, 3), start=1):
+        for block in range(n_blocks):
+            t, f = f"{body}.layer{stage}.{block}", ("body", f"layer{stage}_{block}")
+            for c in (1, 2, 3):
+                out.append(_Entry("params", f"{t}.conv{c}.weight", f + (f"conv{c}", "kernel"),
+                                  *_CONV))
+                out += _bn(f"{t}.bn{c}", f + (f"bn{c}",))
+            if block == 0:
+                out.append(_Entry("params", f"{t}.downsample.0.weight",
+                                  f + ("downsample_conv", "kernel"), *_CONV))
+                out += _bn(f"{t}.downsample.1", f + ("downsample_bn",))
+    for i in range(4):
+        out += _conv_bias(f"backbone.fpn.inner_blocks.{i}.0", ("fpn", f"inner{i}"))
+        out += _conv_bias(f"backbone.fpn.layer_blocks.{i}.0", ("fpn", f"layer{i}"))
+    out += _conv_bias("rpn.head.conv.0.0", ("rpn_head", "conv"))
+    out += _conv_bias("rpn.head.cls_logits", ("rpn_head", "cls_logits"))
+    out += _conv_bias("rpn.head.bbox_pred", ("rpn_head", "bbox_pred"))
+    out += _dense_bias("roi_heads.box_head.fc6", ("box_head", "fc6"), _hwc_dense(256, 7, 7, 1))
+    out += _dense_bias("roi_heads.box_head.fc7", ("box_head", "fc7"))
+    out += _dense_bias("roi_heads.box_predictor.cls_score", ("box_head", "cls_score"))
+    out += _dense_bias("roi_heads.box_predictor.bbox_pred", ("box_head", "bbox_pred"))
+    if with_masks:
+        for i in range(4):
+            out += _conv_bias(f"roi_heads.mask_head.{i}.0", ("mask_head", f"mask_fcn{i + 1}"))
+        out += [_Entry("params", "roi_heads.mask_predictor.conv5_mask.weight",
+                       ("mask_head", "conv5_mask", "kernel"), _convt_to_torch, _convt_to_flax),
+                _Entry("params", "roi_heads.mask_predictor.conv5_mask.bias",
+                       ("mask_head", "conv5_mask", "bias"), *_VEC)]
+        out += _conv_bias("roi_heads.mask_predictor.mask_fcn_logits",
+                          ("mask_head", "mask_fcn_logits"))
     return out
 
 
@@ -341,3 +407,13 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(blob, dict) and "model_state_dict" in blob:
         blob = blob["model_state_dict"]
     return dict(blob)
+
+
+def maskrcnn_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX package's MaskRCNN (params, batch_stats), as numpy trees, ->
+    the port's MaskRCNN state dict (torchvision's names); the mask head's
+    tensors when the tree has a mask head."""
+    table = _maskrcnn_entries("mask_head" in params)
+    return {**_from_table(params, "params", table),
+            **_from_table(batch_stats, "batch_stats", table)}

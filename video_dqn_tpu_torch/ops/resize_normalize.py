@@ -15,6 +15,10 @@ On a CUDA tensor `resize_normalize` launches the hand-written kernels in
 csrc/resize_normalize.cu (and counts each launch in `LAUNCHES`) or
 raises; on a CPU tensor it runs `resize_normalize_reference`, the plain
 torch twin built from the same dense matrices.
+
+`normalize_u8` is the normalize alone on frames of any H x W (the
+detector's prologue): the identity kernel, which is flat over the
+tensor's values, or on a CPU tensor `normalize_u8_reference`.
 """
 
 from __future__ import annotations
@@ -181,27 +185,23 @@ _PREPARED: dict = {}
 
 def _prepared(h: int, w: int, out_size: int, dtype: torch.dtype,
               device: torch.device) -> _Launch:
-    """The plan, the band tables on `device` and the kernel's argument
-    struct, made once per (H, W, OUT, output dtype, device); a call copies
-    the struct and fills in its tensors, batch and stream."""
+    """The banded plan, the band tables on `device` and the kernel's
+    argument struct, made once per (H, W, OUT, output dtype, device); a
+    call copies the struct and fills in its tensors, batch and stream."""
     key = (h, w, out_size, dtype, device)
     if key not in _PREPARED:
         plan = kernel_plan(h, w, out_size, dtype.itemsize)
-        bf16 = int(dtype == torch.bfloat16)
-        if plan.identity:
-            tables, args = (), _IdentityArgs(out_bf16=bf16, norm=_NORM)
-        else:
-            row_start, row_w = band_table(resize_matrix(h, out_size))
-            col_start, col_w = band_table(resize_matrix(w, out_size))
-            # the kernel reads the column weights transposed, (K_w, OUT)
-            tables = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                           for a in (row_start, row_w, col_start, col_w.T))
-            args = _BandedArgs(
-                row_start=tables[0].data_ptr(), row_w=tables[1].data_ptr(),
-                col_start=tables[2].data_ptr(), col_w=tables[3].data_ptr(),
-                k_h=row_w.shape[1], k_w=col_w.shape[1], h=h, w=w, out_size=out_size,
-                rows_per_tile=plan.rows_per_tile, smem_bytes=plan.smem_bytes,
-                out_bf16=bf16, norm=_NORM)
+        row_start, row_w = band_table(resize_matrix(h, out_size))
+        col_start, col_w = band_table(resize_matrix(w, out_size))
+        # the kernel reads the column weights transposed, (K_w, OUT)
+        tables = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in (row_start, row_w, col_start, col_w.T))
+        args = _BandedArgs(
+            row_start=tables[0].data_ptr(), row_w=tables[1].data_ptr(),
+            col_start=tables[2].data_ptr(), col_w=tables[3].data_ptr(),
+            k_h=row_w.shape[1], k_w=col_w.shape[1], h=h, w=w, out_size=out_size,
+            rows_per_tile=plan.rows_per_tile, smem_bytes=plan.smem_bytes,
+            out_bf16=int(dtype == torch.bfloat16), norm=_NORM)
         _PREPARED[key] = _Launch(plan, args, tables)
     return _PREPARED[key]
 
@@ -219,50 +219,81 @@ def resize_normalize_reference(x_u8: torch.Tensor, out_size: int) -> torch.Tenso
     return ((z - mean) * inv_std).contiguous().permute(0, 3, 1, 2)
 
 
+def normalize_u8_reference(x_u8: torch.Tensor) -> torch.Tensor:
+    """Plain torch twin of the identity kernel: (x - 255*mean) /
+    (255*std) in float32 with the folded constants, (B, 3, H, W)."""
+    mean, inv_std = (torch.tensor(a, device=x_u8.device) for a in _norm_consts())
+    return ((x_u8.float() - mean) * inv_std).permute(0, 3, 1, 2)
+
+
+def _check_frames(x_u8: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if dtype not in OUT_DTYPES:
+        raise TypeError(f"{name} writes float32 or bfloat16, not {dtype}")
+    if x_u8.dtype != torch.uint8:
+        raise TypeError(f"{name} takes uint8 frames, got {x_u8.dtype}")
+    if x_u8.dim() != 4 or x_u8.shape[-1] != 3:
+        raise ValueError(f"{name} takes (B, H, W, 3), got {tuple(x_u8.shape)}")
+    if not x_u8.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous NHWC tensor")
+    if x_u8.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x_u8.device}")
+
+
+def _launch(x_u8: torch.Tensor, out_size: int, dtype: torch.dtype,
+            identity: bool) -> torch.Tensor:
+    """One launch of the kernel's identity (flat over the values: any H x W,
+    out_size == H) or banded path on the current stream, no synchronize."""
+    if x_u8.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x_u8.device):
+            return _launch(x_u8, out_size, dtype, identity)
+    lib = _build.load()
+    b, h, w, _ = x_u8.shape
+    shape = (b, h, w, 3) if identity else (b, out_size, out_size, 3)
+    out = torch.empty(shape, dtype=dtype, device=x_u8.device)
+    if identity:
+        args = _IdentityArgs(out_bf16=int(dtype == torch.bfloat16), norm=_NORM,
+                             n=x_u8.numel())
+        entry = lib.vdqn_resize_normalize_identity
+    else:
+        launch = _prepared(h, w, out_size, dtype, x_u8.device)
+        if b > MAX_BATCH:
+            raise ValueError(f"resize_normalize resamples at most {MAX_BATCH} frames a call")
+        args = type(launch.args).from_buffer_copy(launch.args)
+        args.batch = b
+        entry = lib.vdqn_resize_normalize_banded
+    args.x, args.out = x_u8.data_ptr(), out.data_ptr()
+    args.stream = torch.cuda.current_stream().cuda_stream
+    err = entry(ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"resize_normalize kernel launch failed: CUDA error {err}")
+    LAUNCHES["identity" if identity else "banded", str(dtype)[6:]] += 1
+    return out.permute(0, 3, 1, 2)
+
+
 def resize_normalize(x_u8: torch.Tensor, out_size: int,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 (B, H, W, 3) -> normalized (B, 3, OUT, OUT) of `dtype`
     (float32 or bfloat16), NCHW in channels_last memory. CUDA tensors go
     through the kernel (launched on the current stream, no synchronize);
     CPU tensors through the twin, cast to `dtype`."""
-    if dtype not in OUT_DTYPES:
-        raise TypeError(f"resize_normalize writes float32 or bfloat16, not {dtype}")
-    if x_u8.dtype != torch.uint8:
-        raise TypeError(f"resize_normalize takes uint8 frames, got {x_u8.dtype}")
-    if x_u8.dim() != 4 or x_u8.shape[-1] != 3:
-        raise ValueError(f"resize_normalize takes (B, H, W, 3), got {tuple(x_u8.shape)}")
-    if not x_u8.is_contiguous():
-        raise ValueError("resize_normalize takes a contiguous NHWC tensor")
+    _check_frames(x_u8, dtype, "resize_normalize")
     if out_size < 1:
         raise ValueError(f"out_size must be positive, got {out_size}")
     if x_u8.device.type == "cpu":
         return resize_normalize_reference(x_u8, out_size).to(dtype)
-    if x_u8.device.type != "cuda":
-        raise ValueError(f"resize_normalize runs on cuda or cpu, not {x_u8.device}")
-    if x_u8.device.index != torch.cuda.current_device():
-        with torch.cuda.device(x_u8.device):
-            return resize_normalize(x_u8, out_size, dtype)
+    _, h, w, _ = x_u8.shape
+    return _launch(x_u8, out_size, dtype, kernel_plan(h, w, out_size).identity)
 
-    lib = _build.load()
-    b, h, w, _ = x_u8.shape
-    launch = _prepared(h, w, out_size, dtype, x_u8.device)
-    if not launch.plan.identity and b > MAX_BATCH:
-        raise ValueError(f"resize_normalize resamples at most {MAX_BATCH} frames a call")
-    out = torch.empty((b, out_size, out_size, 3), dtype=dtype, device=x_u8.device)
-    args = type(launch.args).from_buffer_copy(launch.args)
-    args.x, args.out = x_u8.data_ptr(), out.data_ptr()
-    if launch.plan.identity:
-        args.n = x_u8.numel()
-        entry = lib.vdqn_resize_normalize_identity
-    else:
-        args.batch = b
-        entry = lib.vdqn_resize_normalize_banded
-    args.stream = torch.cuda.current_stream().cuda_stream
-    err = entry(ctypes.byref(args))
-    if err != 0:
-        raise RuntimeError(f"resize_normalize kernel launch failed: CUDA error {err}")
-    LAUNCHES["identity" if launch.plan.identity else "banded", str(dtype)[6:]] += 1
-    return out.permute(0, 3, 1, 2)
+
+def normalize_u8(x_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 (B, H, W, 3) of any H x W -> ImageNet-normalized (B, 3, H, W)
+    of `dtype` (float32 or bfloat16), NCHW in channels_last memory: the
+    identity kernel on a CUDA tensor, normalize_u8_reference cast to
+    `dtype` on a CPU one."""
+    _check_frames(x_u8, dtype, "normalize_u8")
+    if x_u8.device.type == "cpu":
+        return normalize_u8_reference(x_u8).to(dtype)
+    return _launch(x_u8, x_u8.shape[1], dtype, identity=True)
 
 
 # The JAX package's name for this prologue (pallas_image.fused_preprocess).

@@ -50,7 +50,7 @@ def build_variants() -> dict:
         cu.write_text(THREADS_LINE.sub(f"constexpr int kBandThreads = {t};", src))
         lib = _build.BUILD_DIR / f"libbanded_t{t}.so"
         procs[t] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     entries = {}
     for t, (lib, proc) in procs.items():
