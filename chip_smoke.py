@@ -10,11 +10,15 @@ prints no result line):
   3. each kernel against its plain torch version on the card, at the
      shapes the serving path gives it, in float32 and bfloat16 output, with
      its profiled device time, its bound and the wrapper's host cost; and
-     the NMS kernel (csrc/nms.cu) against nms_reference at the detector's
-     shapes (B*5 RPN groups of up to 1,000 -> 1,000, B final groups of
-     1,000 -> 100, B = 4 and 12) and on tied, -inf and one-candidate
-     groups: keep lists and valid flags equal, with its device time, the
-     plain twin's and the bound from this data's IoUs;
+     the NMS kernels (csrc/nms.cu: the IoU bitmask, then the scan) against
+     nms_reference at the detector's shapes (B*5 RPN groups of up to 1,000
+     -> 1,000, B final groups of 1,000 -> 100, B = 4 and 12), one group of
+     MAX_GROUP = 12,288 -> 300, 3 groups of 5,000 -> 300, identical boxes
+     (1 kept), disjoint boxes (all kept), the RPN's groups cut to 100 kept,
+     and tied, -inf and one-candidate groups: keep lists and valid flags
+     equal, with the two kernels' device time, the plain twin's, the bound
+     from this data's IoUs and the mask workspace's bytes; unsorted groups
+     keep nothing and set their status, which check_nms_status raises on;
   4. the serving path at full width: the published extra_capacity
      single-frame Q-net (configs/experiments/real_data/config.yml, 224 px,
      5 classes x 3 actions) with seeded random weights, loaded through
@@ -113,7 +117,8 @@ prints no result line):
      run time runs one geodesic episode to an SPL on disk;
   11. the detector at full width (maskrcnn_resnet50_fpn, seeded
      torchvision-named weights saved as a .pth and loaded through
-     load_detector, 224 px, bf16): (a) a 12-view fake-env stop and 4
+     load_detector, 224 px, bf16): (a) a 12-view forward with no host
+     synchronize (sync debug mode "error"); a 12-view fake-env stop and 4
      fixture frames, one identity launch and two NMS launches a call;
      bf16 against float32 on the card and float32 card against the CPU,
      stage by stage on the same proposals (FPN maps, class probabilities,
@@ -196,8 +201,9 @@ from video_dqn_tpu_torch.train import dqn, inverse
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
-from torch_detector_util import (seeded_maskrcnn_state_dict,  # noqa: E402  (phase 11's
-                                 unmatched_detections)         # weights and matching)
+from torch_detector_util import (  # noqa: E402  (phase 3's box layouts, phase 11's weights
+    disjoint_boxes, identical_boxes, seeded_maskrcnn_state_dict,  # and matching)
+    unmatched_detections)
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -359,15 +365,20 @@ def kernel_flops(shape, out: int) -> int:
     return b * (out * w * 3 * 2 * k_h + out * out * 3 * (2 * k_w + 2))
 
 
-def kernel_device_ms(fn, calls: int = 20, kernel: str = "resize_normalize"):
-    """Profiled device time of the kernel named `kernel` per call of fn,
-    or None where the profiler missed some of its launches twice (its
-    first profiling run can drop events)."""
+def kernel_device_ms(fn, calls: int = 20, kernels=("resize_normalize",), split=None):
+    """Profiled device time per call of fn of every `__global__` function
+    whose name holds one of `kernels`, where each call launches each of
+    them once; None where the profiler missed some of the launches twice
+    (its first profiling run can drop events). `split`, a dict, gets each
+    of `kernels`' own ms per call."""
     for _ in range(2):
         prof = device_profile(fn, calls=calls)
-        seen = [(n, us) for name, (n, us) in prof["by_name"].items() if kernel in name]
-        if sum(n for n, _ in seen) == calls:
-            return sum(us for _, us in seen) / calls / 1e3
+        seen = {k: [(n, us) for name, (n, us) in prof["by_name"].items() if k in name]
+                for k in kernels}
+        if all(sum(n for n, _ in v) == calls for v in seen.values()):
+            if split is not None:
+                split.update({k: sum(us for _, us in v) / calls / 1e3 for k, v in seen.items()})
+            return sum(us for v in seen.values() for _, us in v) / calls / 1e3
     return None
 
 
@@ -459,8 +470,11 @@ def kernel_vs_plain() -> list[dict]:
 RPN_LEVELS, RPN_THRESH = (1000, 1000, 588, 147, 48), 0.7
 FINAL_CANDIDATES, FINAL_KEEP, FINAL_THRESH = 1000, 100, 0.5
 DETECTOR_BATCHES = (4, 12)
-# float operations of one IoU and its comparison (csrc/nms.cu `iou`)
+# float operations of one IoU and its comparison (csrc/nms.cu `iou_terms`, the
+# division and the compare)
 NMS_PAIR_FLOPS = 17
+# the __global__ functions of one nms_groups call (csrc/nms.cu)
+NMS_KERNELS = ("nms_mask_kernel", "nms_scan_kernel")
 
 
 def nms_inputs(groups: int, n: int, lengths, span: float, classes: int, seed: int):
@@ -504,33 +518,65 @@ def nms_pairs(boxes, scores, thr: float, keep, valid) -> int:
     return pairs
 
 
-def nms_vs_plain() -> list[dict]:
-    """The NMS kernel against nms_reference on the card at the detector's
-    shapes (B*5 RPN groups of up to 1,000 -> 1,000 kept, B final groups of
-    1,000 -> 100, B = 4 and 12) and on edge inputs (all-tied scores, -inf
-    rows, one-candidate groups): keep lists and valid flags equal. Times:
-    the kernel's profiled device ms (the wrapper's order check is a
-    separate reduction), the plain twin's ms, and the bound from the bytes
-    and this data's IoUs."""
+def nms_cases() -> list[tuple]:
+    """(name, boxes, scores, IoU threshold, max_out, kept a group or None)
+    of phase 3: the detector's shapes (B*5 RPN groups of up to 1,000 ->
+    1,000 kept, B final groups of 1,000 -> 100, B = 4 and 12), one group
+    at MAX_GROUP, the card test's n = 5,000, identical and disjoint boxes,
+    and the RPN's groups at B = 12 cut to 100 kept."""
     cases = []
     for b in DETECTOR_BATCHES:
-        cases.append((f"rpn_b{b}", b * 5, max(RPN_LEVELS), RPN_LEVELS * b, IMAGE_SIZE, 1,
-                      RPN_THRESH, max(RPN_LEVELS)))
-        cases.append((f"final_b{b}", b, FINAL_CANDIDATES, [FINAL_CANDIDATES] * b, IMAGE_SIZE,
-                      90, FINAL_THRESH, FINAL_KEEP))
+        cases.append((f"rpn_b{b}", *nms_inputs(b * 5, max(RPN_LEVELS), RPN_LEVELS * b,
+                                               IMAGE_SIZE, 1, SEED + len(cases)),
+                      RPN_THRESH, max(RPN_LEVELS), None))
+        cases.append((f"final_b{b}", *nms_inputs(b, FINAL_CANDIDATES, [FINAL_CANDIDATES] * b,
+                                                 IMAGE_SIZE, 90, SEED + len(cases)),
+                      FINAL_THRESH, FINAL_KEEP, None))
+    big = det_boxes.MAX_GROUP
+    cases.append(("max_group", *nms_inputs(1, big, [big], IMAGE_SIZE, 1, SEED + 4),
+                  RPN_THRESH, 300, None))
+    cases.append(("n5000", *nms_inputs(3, 5000, [5000, 3100, 1], IMAGE_SIZE, 1, SEED + 5),
+                  RPN_THRESH, 300, None))
+    for name, boxes, thr, kept in (("identical", identical_boxes(4, 1000), RPN_THRESH, 1),
+                                   ("disjoint", disjoint_boxes(4, 1000, SEED + 7),
+                                    FINAL_THRESH, 1000)):
+        _, scores = nms_inputs(4, 1000, [1000] * 4, IMAGE_SIZE, 1, SEED + len(cases))
+        cases.append((name, torch.from_numpy(boxes).cuda(), scores, thr, 1000, kept))
+    b = max(DETECTOR_BATCHES)
+    cases.append(("cut", *nms_inputs(b * 5, max(RPN_LEVELS), RPN_LEVELS * b, IMAGE_SIZE, 1,
+                                     SEED + 2), RPN_THRESH, 100, None))
+    return cases
+
+
+def nms_vs_plain() -> list[dict]:
+    """The NMS kernels against nms_reference on the card on nms_cases:
+    keep lists and valid flags equal (and the kept counts that identical
+    and disjoint boxes force), then on edge inputs (all-tied scores, -inf
+    rows, one-candidate groups) at IoU 0, 0.5 and 1. Times: the mask and
+    scan kernels' profiled device ms together, the plain twin's ms, and the
+    bound from the bytes and this data's IoUs; each row logs the mask
+    workspace's bytes."""
     rows = []
-    for k, (name, g, n, lengths, span, classes, thr, max_out) in enumerate(cases):
-        boxes, scores = nms_inputs(g, n, lengths, span, classes, SEED + k)
-        keep, valid = det_boxes.nms_groups(boxes, scores, thr, max_out)
+    for name, boxes, scores, thr, max_out, kept_each in nms_cases():
+        g, n = scores.shape
+        keep, valid, status = det_boxes.nms_groups(boxes, scores, thr, max_out)
         want_keep, want_valid = det_boxes.nms_reference(boxes, scores, thr, max_out)
-        torch.cuda.synchronize()
+        det_boxes.check_nms_status(status)
         if not (torch.equal(keep, want_keep) and torch.equal(valid, want_valid)):
             raise AssertionError(f"nms {name}: the kernel's keep/valid differ from the plain "
                                  f"version's ({int((keep != want_keep).sum())} indices, "
                                  f"{int((valid != want_valid).sum())} flags)")
+        kept = valid.sum(1)
+        if kept_each is not None and not bool((kept == kept_each).all()):
+            raise AssertionError(f"nms {name}: kept {kept.tolist()} a group, not {kept_each}")
+        if name == "cut":
+            uncut = det_boxes.nms_reference(boxes, scores, thr, n)[1].sum(1)
+            if not bool((uncut > max_out).any()):
+                raise AssertionError(f"nms cut: no group would keep more than {max_out}")
         call = lambda: det_boxes.nms_groups(boxes, scores, thr, max_out)  # noqa: E731
         event_ms = cuda_ms(call, iters=10)
-        device_ms = kernel_device_ms(call, calls=10, kernel="nms_kernel")
+        split = {}
+        device_ms = kernel_device_ms(call, calls=10, kernels=NMS_KERNELS, split=split)
         ms = device_ms if device_ms is not None else event_ms
         plain_ms = cuda_ms(lambda: det_boxes.nms_reference(boxes, scores, thr, max_out),
                            iters=2, warmup=1)
@@ -539,35 +585,48 @@ def nms_vs_plain() -> list[dict]:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = pairs * NMS_PAIR_FLOPS / FP32_FLOPS * 1e3
         row = {"case": name, "groups": g, "n": n, "max_out": max_out, "threshold": thr,
-               "kept": int(valid.sum()), "max_abs_err": 0.0, "tolerance": "equal",
+               "kept": int(kept.sum()), "max_abs_err": 0.0, "tolerance": "equal",
                "ms": ms, "ms_source": "profiler" if device_ms is not None else "events",
                "event_ms": event_ms, "plain_ms": plain_ms, "pairs": pairs, "bytes": n_bytes,
+               "workspace_bytes": det_boxes.workspace_bytes(g, n),
+               "kernel_ms": split,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": None}
         log(f"[kernel] nms {name}: {g} groups x {n} -> {max_out} (IoU > {thr}): keep and valid "
             f"equal to the plain version ({row['kept']} kept); device {ms:.4f} ms "
-            f"({row['ms_source']}), events {event_ms:.4f} ms (with the order check); plain "
-            f"{plain_ms:.4f} ms; {pairs} IoUs, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']}), {row['bound_ms'] / ms:.2%} of it")
+            f"({row['ms_source']}; " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f"), events {event_ms:.4f} ms (back to "
+            f"back, status unread); plain {plain_ms:.4f} ms; {pairs} IoUs, bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}), {row['bound_ms'] / ms:.2%} of it; "
+            f"workspace {row['workspace_bytes']} bytes")
         rows.append(row)
     # edge inputs: every score tied, whole -inf groups, single candidates
     boxes, scores = nms_inputs(6, 64, [64, 0, 1, 64, 33, 2], 96.0, 1, SEED)
     scores[0] = 0.5
     scores[3, :40] = 0.25
     for thr in (0.0, 0.5, 1.0):
-        keep, valid = det_boxes.nms_groups(boxes, scores, thr, 64)
+        keep, valid, status = det_boxes.nms_groups(boxes, scores, thr, 64)
+        det_boxes.check_nms_status(status)
         want_keep, want_valid = det_boxes.nms_reference(boxes, scores, thr, 64)
         if not (torch.equal(keep, want_keep) and torch.equal(valid, want_valid)):
             raise AssertionError(f"nms edge inputs at IoU {thr}: keep/valid differ")
+    flipped = scores.flip(1)
+    _, valid, status = det_boxes.nms_groups(boxes, flipped, 0.5, 8)
+    want = (~(flipped[:, 1:] <= flipped[:, :-1]).all(1) | flipped[:, 0].isnan()).int()
+    if not torch.equal(status, want) or int(want.sum()) in (0, len(want)):
+        raise AssertionError(f"nms statuses of flipped groups {status.tolist()}, not "
+                             f"{want.tolist()}")
+    if bool(valid[want.bool()].any()):
+        raise AssertionError("nms kept candidates of a group out of score order")
     try:
-        det_boxes.nms_groups(boxes, scores.flip(1), 0.5, 8)
+        det_boxes.check_nms_status(status)
     except ValueError:
         pass
     else:
-        raise AssertionError("nms accepted groups out of score order")
+        raise AssertionError("check_nms_status accepted groups out of score order")
     log("[kernel] nms edge inputs (all tied, -inf groups, one candidate, IoU 0 / 0.5 / 1): "
-        "equal; unsorted groups raise")
+        "equal; unsorted groups keep nothing and set their status, which raises")
     return rows
 
 
@@ -2197,7 +2256,7 @@ def detector_weights(path: Path) -> dict:
     frame = noise_frames(1, SEED)
     with torch.no_grad():
         feats = model.features(rn.normalize_u8(torch.from_numpy(frame), torch.float32))
-        rois = model.proposals(feats, IMAGE_SIZE, IMAGE_SIZE)
+        rois, _ = model.proposals(feats, IMAGE_SIZE, IMAGE_SIZE)
         logits, _ = model.roi_heads.box_scores(multilevel_roi_align(feats[:4], rois,
                                                                     STRIDES[:4], 7))
     mean = logits.mean(0)
@@ -2254,7 +2313,7 @@ def detector_stages(model: MaskRCNN, images: np.ndarray, device, dtype,
     with no_tf32(), torch.autocast(device, dtype=torch.bfloat16,
                                    enabled=dtype == torch.bfloat16):
         feats = model.features(rn.normalize_u8(x, dtype))
-        own = model.proposals(feats, h, w)
+        own, _ = model.proposals(feats, h, w)
         dets = model.detect(feats, own, h, w)
         props = own if proposals is None else proposals.to(device)
         logits, deltas = model.roi_heads.box_scores(
@@ -2388,6 +2447,23 @@ def clear_counts() -> None:
     det_boxes.LAUNCHES.clear()
 
 
+def forward_without_sync(detector: TorchDetector, views: np.ndarray) -> None:
+    """The detector's forward of a 12-view stop, bf16 as a call runs it,
+    under the sync debug mode "error": a host synchronize inside it raises.
+    Its NMS statuses are read after."""
+    x = rn.normalize_u8(torch.from_numpy(views).cuda(), detector.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            out = detector.model(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    det_boxes.check_nms_status(out["nms_status"])
+    log(f"[detector] a {len(views)}-view forward ran under the sync debug mode \"error\": no "
+        f"host synchronize in it; NMS statuses {tuple(out['nms_status'].shape)} all zero")
+
+
 def detector_calls(pth: Path, images: np.ndarray) -> dict:
     """Phase 11 (a): the detector at full width loaded through
     load_detector, on a 12-view stop and 4 frames; bf16 against float32 on
@@ -2397,6 +2473,7 @@ def detector_calls(pth: Path, images: np.ndarray) -> dict:
     views, frames = images[:DETECTOR_VIEWS], images[DETECTOR_VIEWS:]
     detector(views)  # the first call's cuDNN plans and kernel loads
     torch.cuda.synchronize()
+    forward_without_sync(detector, views)
     # the main path: counts from 0, one 12-view call and one of 4 frames
     clear_counts()
     got = detector(views) + detector(frames)
@@ -2476,15 +2553,17 @@ def detector_calls(pth: Path, images: np.ndarray) -> dict:
     prof = device_profile(lambda: detector.run(views), calls=5)
     log_profile("detector, a 12-view call (bf16)", prof)
     nms_ms = sum(us for name, (n, us) in prof["by_name"].items()
-                 if "nms_kernel" in name) / prof["calls"] / 1e3
+                 if any(k in name for k in NMS_KERNELS)) / prof["calls"] / 1e3
+    per_call = sum(n for n, _ in prof["by_name"].values()) / prof["calls"]
     log(f"[detector] {stop_ms:.4f} ms a 12-view call (median of 10); images/s "
         + ", ".join(f"{v:.1f} at B = {b}" for b, v in rates.items())
-        + f"; NMS kernels {nms_ms:.4f} ms of a 12-view call; peak device memory "
-          f"{peak:.2f} GiB (B = 32)")
+        + f"; NMS kernels {nms_ms:.4f} ms of a 12-view call; {per_call:.0f} device "
+          f"kernels and copies a call; peak device memory {peak:.2f} GiB (B = 32)")
     return {"launches": launches, "ms_per_12_view_call": stop_ms,
             "images_per_s": {str(b): v for b, v in rates.items()}, "peak_gib": peak,
             "busy_share": prof["busy_share"] if prof["by_name"] else None,
             "device_ms_per_call": prof["device_ms"], "nms_ms_per_call": nms_ms,
+            "device_ops_per_call": per_call,
             "bf16_detections_above": n_bf16, "f32_detections": n_f32, "classes": classes,
             "f32_card_vs_cpu": vs_cpu, "bf16_vs_f32_card": vs_f32,
             "end_to_end_twinned": {"f32_card_vs_cpu": cpu_matched, "bf16_vs_f32": bf16_matched},
@@ -2663,6 +2742,8 @@ def main() -> None:
         **{f"launches_{p}": 0 for p in ("serve", "train", "real_data", "inverse", "label",
                                         "eval", "eval_mesh")},
         "launches_detector": det["launches"]["nms"],
+        # each counted launch is one nms_groups call: its mask and scan kernels
+        "kernels_per_launch": len(NMS_KERNELS),
         "max_abs_err": 0.0,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -26,6 +26,7 @@ from video_dqn_tpu_torch.models.bridge import maskrcnn_state_dict_from_flax
 from video_dqn_tpu_torch.models.detector import boxes as pb
 from video_dqn_tpu_torch.models.detector import roi_align as pr
 from video_dqn_tpu_torch.models.detector.convert import convert_maskrcnn
+from video_dqn_tpu_torch.models.detector.inference import TorchDetector
 from video_dqn_tpu_torch.models.detector.maskrcnn import MaskRCNN
 from tests.torch_detector_util import seeded_maskrcnn_state_dict
 
@@ -151,7 +152,7 @@ def test_nms_groups_are_independent_and_padded_with_minus_inf():
     for g, (b, s) in enumerate(sets):
         order = np.argsort(-s, kind="stable")
         boxes[g, :len(s)], scores[g, :len(s)] = b[order], s[order]
-    keep, valid = pb.nms_groups(t(boxes), t(scores), 0.6, 20)
+    keep, valid, _ = pb.nms_groups(t(boxes), t(scores), 0.6, 20)
     for g, (b, s) in enumerate(sets):
         order = np.argsort(-s, kind="stable")
         want_keep, want_valid = jb.nms(b[order], s[order], 0.6, 20)
@@ -167,6 +168,53 @@ def test_batched_class_nms_equal_jax():
     want_keep, want_valid = jb.batched_class_nms(boxes, scores, classes, 0.5, 60)
     np.testing.assert_array_equal(valid.numpy(), np.asarray(want_valid))
     np.testing.assert_array_equal(keep.numpy(), np.asarray(want_keep))
+
+
+def test_nms_groups_status_on_cpu():
+    """nms_groups on the CPU: the twin's keep and valid, and a zero status
+    a group (the twin takes any order)."""
+    boxes, scores = box_set(np.random.default_rng(8), 40)
+    boxes, scores = t(boxes)[None].repeat(2, 1, 1), t(scores)[None].repeat(2, 1)
+    keep, valid = pb.nms_reference(boxes, scores, 0.5, 12)
+    got_keep, got_valid, status = pb.nms_groups(boxes, scores, 0.5, 12)
+    assert torch.equal(got_keep, keep) and torch.equal(got_valid, valid)
+    assert status.dtype == torch.int32 and status.tolist() == [0, 0]
+    pb.check_nms_status(status)
+
+
+class _StubMaskRCNN(torch.nn.Module):
+    """Fixed detections and NMS statuses of MaskRCNN.forward's shapes."""
+
+    def __init__(self, status: int):
+        super().__init__()
+        self.status = status
+
+    def forward(self, images):
+        b, d = images.shape[0], 5
+        rng = np.random.default_rng(9)
+        return {"boxes": t(rng.uniform(0, 100, (b, d, 4)).astype(np.float32)),
+                "scores": t(rng.random((b, d)).astype(np.float32)),
+                "classes": t(rng.integers(0, 91, (b, d))),
+                "valid": t(rng.random((b, d)) < 0.6),
+                "nms_status": torch.full((b, 6), self.status, dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("status", [0, 1], ids=["in-order", "out-of-order"])
+def test_detector_run_reads_nms_status_after_its_copy(status):
+    """TorchDetector.run raises the order error where the forward's NMS
+    statuses are set, and otherwise returns the forward's detections."""
+    detector = TorchDetector(_StubMaskRCNN(status), device="cpu")
+    frames = np.zeros((2, 16, 16, 3), np.uint8)
+    if status:
+        with pytest.raises(ValueError, match="descending"):
+            detector.run(frames)
+        return
+    got = detector.run(frames)
+    want = _StubMaskRCNN(0)(torch.zeros(2))
+    assert sorted(got) == ["boxes", "classes", "scores", "valid"]
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k].numpy())
+    assert got["classes"].dtype == np.int64 and got["valid"].dtype == np.bool_
 
 
 # -- ROIAlign --------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The detector's test helpers, shared by the CPU parity tests, the card
 tests and chip_smoke.py: seeded weights under torchvision's
-maskrcnn_resnet50_fpn names, and detections matched by class, score and
-box. Imports torch, numpy and the port only (no jax, no JAX package), so
+maskrcnn_resnet50_fpn names, detections matched by class, score and box,
+and NMS groups of identical or of disjoint boxes. Imports torch, numpy and the port only (no jax, no JAX package), so
 that it also runs where only the port is installed."""
 
 import re
@@ -67,3 +67,18 @@ def unmatched_detections(got: dict, want: dict, score_atol: float, box_atol: flo
     return missing + [("want", int(want["classes"][j]), float(want["scores"][j]),
                        want["boxes"][j].tolist())
                       for j in unused if want["scores"][j] > min_score + score_atol]
+
+
+def identical_boxes(groups: int, n: int) -> np.ndarray:
+    """(groups, n, 4) float32, every box the same: NMS keeps the first."""
+    return np.broadcast_to(np.float32([20.0, 30.0, 120.0, 150.0]), (groups, n, 4)).copy()
+
+
+def disjoint_boxes(groups: int, n: int, seed: int) -> np.ndarray:
+    """(groups, n, 4) float32 boxes of 8 px on a 10 px grid, shuffled in
+    each group: no two overlap, so NMS keeps every one."""
+    side = int(np.ceil(np.sqrt(n)))
+    rng = np.random.default_rng(seed)
+    cells = np.stack([rng.permutation(side * side)[:n] for _ in range(groups)])
+    xy = np.stack([cells % side, cells // side], -1) * 10.0
+    return np.concatenate([xy, xy + 8.0], -1).astype(np.float32)

@@ -5,11 +5,14 @@ and the fixed-shape NMS.
 Box convention: (x1, y1, x2, y2) in image pixels, float32.
 
 `nms` keeps the JAX contract (kept indices in score order, padded with 0,
-and a valid mask). On a CUDA tensor it launches the hand-written kernel in
-csrc/nms.cu (and counts the launch in `LAUNCHES`) or raises; on a CPU
+and a valid mask). On a CUDA tensor it launches the hand-written kernels in
+csrc/nms.cu (and counts the call in `LAUNCHES`) or raises; on a CPU
 tensor it runs `nms_reference`, the JAX package's argmax-and-suppress
 loop step for step. `nms_groups` is the batched form both call: G groups
-of n candidates in one launch.
+of n candidates in one call. The kernels check each group's score order
+on the card; `nms_groups` hands that status back unread, so that a caller
+(the detector) reads it with its own outputs, in one copy, and `nms`
+reads it at once.
 """
 
 from __future__ import annotations
@@ -24,15 +27,19 @@ import torch
 
 from ... import _build
 
-# Kernel launches since the last clear; chip_smoke.py reads it to show that
-# the detector's path went through the kernel.
+# Kernel launches since the last clear, one a call (its mask and scan
+# kernels); chip_smoke.py reads it to show that the detector's path went
+# through the kernels.
 LAUNCHES: Counter = Counter()
 
 # log(1000 / 16): torchvision's clamp of dw and dh before exp
 BBOX_CLAMP = math.log(1000.0 / 16)
-# candidates a group may hold on the card: the kernel stages each group's
-# boxes (16 bytes) and alive flags (1 byte) in shared memory
+# candidates a group may hold on the card: the scan stages two 64-row
+# blocks of a group's IoU bitmask (a 64-bit word for every 64 candidates a
+# row) in shared memory, 199,168 bytes at 12,288
 MAX_GROUP = 12_288
+ORDER_ERROR = ("nms: a group's scores are not in descending order (or hold NaN); "
+               "sort each group first")
 
 
 def generate_anchors(
@@ -144,20 +151,40 @@ def nms_reference(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: floa
 class _NmsArgs(ctypes.Structure):
     """Arguments of vdqn_nms (csrc/nms.cu)."""
     _fields_ = [(name, ctypes.c_void_p) for name in
-                ("boxes", "scores", "keep", "valid", "status", "stream")]
+                ("boxes", "scores", "keep", "valid", "status", "workspace", "stream")]
     _fields_ += [(name, ctypes.c_int) for name in ("groups", "n", "max_out")]
     _fields_ += [("iou_threshold", ctypes.c_float)]
 
 
+def workspace_bytes(groups: int, n: int) -> int:
+    """Bytes of the kernels' workspace: the IoU bitmask, a 64-bit word for
+    every 64 candidates of each candidate's row, then an int a 64-candidate
+    block (its order check and finite count)."""
+    words = -(-n // 64)
+    return groups * words * (n * 8 + 4)
+
+
+def check_nms_status(status) -> None:
+    """Raise ValueError where a group's status from nms_groups is set (its scores were out of descending order, or held NaN). status
+    is a tensor or a numpy array; a tensor on the card is read back here,
+    a synchronize."""
+    if bool(status.any()):
+        raise ValueError(ORDER_ERROR)
+
+
 def nms_groups(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
-               max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+               max_out: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy NMS over G independent groups: boxes (G, n, 4) and scores
     (G, n), float32, each group in descending score order (-inf last; a
     -inf candidate is never kept). Returns keep (G, max_out) int32, the
-    kept indices in score order padded with 0, and valid (G, max_out) bool.
+    kept indices in score order padded with 0, valid (G, max_out) bool,
+    and status (G,) int32.
 
-    CUDA tensors go to the kernel, which checks the order and fails the
-    call if a group is out of order; CPU tensors to nms_reference."""
+    CUDA tensors go to the kernels, which check the order: a group out of
+    order keeps nothing and sets its status to 1. The status stays on the
+    device, unread, for the caller's check_nms_status, so that the call
+    does not synchronize. CPU tensors go to nms_reference, which takes any
+    order (status zero)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"nms takes boxes (G, n, 4) and scores (G, n), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
@@ -166,36 +193,38 @@ def nms_groups(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                         f"{scores.dtype}")
     if max_out < 1:
         raise ValueError(f"max_out must be positive, got {max_out}")
+    g, n = scores.shape
     if boxes.device.type == "cpu":
-        return nms_reference(boxes, scores, iou_threshold, max_out)
+        keep, valid = nms_reference(boxes, scores, iou_threshold, max_out)
+        return keep, valid, torch.zeros(g, dtype=torch.int32)
     if boxes.device.type != "cuda" or scores.device != boxes.device:
         raise ValueError(f"nms runs on cuda or cpu, not {boxes.device} / {scores.device}")
-    g, n = scores.shape
     if n > MAX_GROUP:
         raise ValueError(f"nms on the card takes at most {MAX_GROUP} candidates a group, "
                          f"got {n}")
     if boxes.device.index != torch.cuda.current_device():
         with torch.cuda.device(boxes.device):
             return nms_groups(boxes, scores, iou_threshold, max_out)
-    lib = _build.load()
     boxes, scores = boxes.contiguous(), scores.contiguous()
     keep = torch.empty((g, max_out), dtype=torch.int32, device=boxes.device)
     valid = torch.empty((g, max_out), dtype=torch.bool, device=boxes.device)
     status = torch.empty(g, dtype=torch.int32, device=boxes.device)
     if g == 0 or n == 0:
-        return keep.zero_(), valid.zero_()
-    args = _NmsArgs(boxes=boxes.data_ptr(), scores=scores.data_ptr(),
-                    keep=keep.data_ptr(), valid=valid.data_ptr(), status=status.data_ptr(),
-                    stream=torch.cuda.current_stream().cuda_stream, groups=g, n=n,
-                    max_out=max_out, iou_threshold=iou_threshold)
-    err = lib.vdqn_nms(ctypes.byref(args))
-    if err != 0:
-        raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
-    LAUNCHES["nms"] += 1
-    if bool(status.any()):  # the one synchronize of a call
-        raise ValueError("nms: a group's scores are not in descending order "
-                         "(or hold NaN); sort each group first")
-    return keep, valid
+        keep.zero_(), valid.zero_(), status.zero_()
+    else:  # the kernels write every entry
+        lib = _build.load()
+        workspace = torch.empty(-(-workspace_bytes(g, n) // 8), dtype=torch.int64,
+                                device=boxes.device)
+        args = _NmsArgs(boxes=boxes.data_ptr(), scores=scores.data_ptr(),
+                        keep=keep.data_ptr(), valid=valid.data_ptr(),
+                        status=status.data_ptr(), workspace=workspace.data_ptr(),
+                        stream=torch.cuda.current_stream().cuda_stream, groups=g, n=n,
+                        max_out=max_out, iou_threshold=iou_threshold)
+        err = lib.vdqn_nms(ctypes.byref(args))
+        if err != 0:
+            raise RuntimeError(f"nms kernel launch failed: CUDA error {err}")
+        LAUNCHES["nms"] += 1
+    return keep, valid, status
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -204,10 +233,12 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     (max_out,) int32, the kept indices in score order padded with 0, and
     valid (max_out,) bool. The scores may come in any order: they are
     sorted (stable, descending, as lax.top_k breaks ties) before
-    nms_groups and the indices mapped back."""
+    nms_groups and the indices mapped back. NaN scores raise ValueError
+    (on the card, a synchronize)."""
     order = torch.sort(scores, descending=True, stable=True).indices
-    keep, valid = nms_groups(boxes[order][None], scores[order][None], iou_threshold,
-                             max_out)
+    keep, valid, status = nms_groups(boxes[order][None], scores[order][None],
+                                     iou_threshold, max_out)
+    check_nms_status(status)
     keep = torch.where(valid[0], order[keep[0].long()], 0).to(torch.int32)
     return keep, valid[0]
 

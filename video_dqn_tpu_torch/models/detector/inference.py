@@ -8,7 +8,8 @@ A call copies the frames to the device, normalizes them with the identity
 kernel (ops/resize_normalize.py normalize_u8; bf16 out on the card, where
 the model runs under bf16 autocast as the JAX package runs the detector in
 bf16; float32 on the CPU), runs MaskRCNN over the whole batch, and brings
-the whole output back in one device-to-host copy.
+the whole output back in one device-to-host copy, the NMS order checks
+with it: that copy is a call's one host synchronize.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ..._device import resolve_device
 from ...data.detect import COCO_TARGET_IDS
 from ...ops.resize_normalize import normalize_u8
 from ..bridge import load_torch_state_dict
+from .boxes import check_nms_status
 from .convert import convert_maskrcnn
 from .maskrcnn import MaskRCNN
 
@@ -45,7 +47,9 @@ class TorchDetector:
     @torch.no_grad()
     def run(self, images: np.ndarray) -> Dict[str, np.ndarray]:
         """uint8 (B, H, W, 3) -> {boxes (B, D, 4), scores (B, D), classes
-        (B, D), valid (B, D)} as numpy, D = max_detections."""
+        (B, D), valid (B, D)} as numpy, D = max_detections. Raises
+        ValueError, after the copy, where an NMS group's scores were out of
+        order or held NaN."""
         x = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
         if self.on_card:
             x = x.pin_memory().to(self.device, non_blocking=True)
@@ -53,10 +57,14 @@ class TorchDetector:
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             out = self.model(x)
-        # one device-to-host copy: (B, D, 7) = box, score, class, valid
-        packed = torch.cat([out["boxes"], out["scores"][..., None],
-                            out["classes"][..., None].float(),
-                            out["valid"][..., None].float()], -1).cpu().numpy()
+        # one device-to-host copy: (B, D, 7) = box, score, class, valid,
+        # then the NMS statuses
+        dets = torch.cat([out["boxes"], out["scores"][..., None],
+                          out["classes"][..., None].float(),
+                          out["valid"][..., None].float()], -1)
+        flat = torch.cat([dets.reshape(-1), out["nms_status"].reshape(-1).float()]).cpu().numpy()
+        check_nms_status(flat[dets.numel():])
+        packed = flat[:dets.numel()].reshape(dets.shape)
         return {"boxes": packed[..., :4], "scores": packed[..., 4],
                 "classes": packed[..., 5].astype(np.int64), "valid": packed[..., 6] > 0}
 

@@ -22,7 +22,10 @@ Every selection stage has the JAX package's fixed shape and defaults
 index first, as lax.top_k's do (a stable descending sort). The B images of
 a call go through each stage together: the RPN's NMS of every level of
 every image is one `nms_groups` call, and the final class-NMS of every
-image another. Selection runs in float32 whatever the convs' type.
+image another. Selection runs in float32 whatever the convs' type. The
+two calls' order checks come out unread, as `nms_status`, so that a
+forward on the card holds no host synchronize: the caller reads them with
+the detections (inference.py TorchDetector.run).
 """
 
 from __future__ import annotations
@@ -191,8 +194,11 @@ class MaskRCNN(nn.Module):
     selection stage, 100 detections, RPN NMS 0.7, box NMS 0.5, score
     threshold 0.05, 91 COCO classes. forward takes normalized images (B,
     3, H, W) and returns {boxes (B, D, 4), scores (B, D), classes (B, D)
-    int64, valid (B, D) bool} (and masks (B, D, 28, 28) with with_masks),
-    D = max_detections, invalid rows zero."""
+    int64, valid (B, D) bool, nms_status (B, L + 1) int32} (and masks (B,
+    D, 28, 28) with with_masks), D = max_detections, invalid rows zero;
+    nms_status is each NMS group's order check (the RPN's L levels, then
+    the class NMS; nonzero: the group's scores were out of order or held
+    NaN), unread (boxes.check_nms_status)."""
 
     def __init__(self, num_classes: int = 91, with_masks: bool = False,
                  pre_nms_topk: int = 1000, post_nms_topk: int = 1000,
@@ -219,11 +225,12 @@ class MaskRCNN(nn.Module):
         return self.backbone.fpn(*self.backbone.body(images))
 
     def proposals(self, feats: Sequence[torch.Tensor], height: int, width: int
-                  ) -> torch.Tensor:
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, P, 4) float32 proposals: per level the top pre_nms_topk
         anchors by objectness, decoded, clipped and NMS'd (every level of
         every image in one nms_groups call), then the top num_proposals
-        across levels; rows past the valid ones are zero boxes."""
+        across levels; rows past the valid ones are zero boxes. Also the
+        NMS groups' statuses, (B, L) int32, unread."""
         logits, deltas = self.rpn.head(feats)
         b = feats[0].shape[0]
         level_boxes, level_scores, sizes = [], [], []
@@ -245,8 +252,8 @@ class MaskRCNN(nn.Module):
         boxes = torch.stack([pad(t, 0.0) for t in level_boxes], 1)        # (B, L, n, 4)
         scores = torch.stack([pad(t, -float("inf")) for t in level_scores], 1)
         keep_out = [min(self.post_nms_topk, k) for k in sizes]
-        keep, valid = nms_groups(boxes.reshape(-1, n, 4), scores.reshape(-1, n),
-                                 self.rpn_nms_thresh, max(keep_out))
+        keep, valid, status = nms_groups(boxes.reshape(-1, n, 4), scores.reshape(-1, n),
+                                         self.rpn_nms_thresh, max(keep_out))
         keep = keep.view(b, len(sizes), -1).long()
         valid = valid.view(b, len(sizes), -1)
         all_boxes, all_scores = [], []
@@ -256,14 +263,15 @@ class MaskRCNN(nn.Module):
             all_scores.append(torch.where(ok, _take(level_scores[lvl], idx), -float("inf")))
         proposals, pscores = torch.cat(all_boxes, 1), torch.cat(all_scores, 1)
         _, idx = topk_stable(pscores, min(self.num_proposals, pscores.shape[1]))
-        return _take(proposals, idx)
+        return _take(proposals, idx), status.view(b, len(sizes))
 
     def detect(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor,
                height: int, width: int) -> Dict[str, torch.Tensor]:
         """The box head on the proposals, per-class decode and clip, the
         score threshold, the top det_candidates, and the per-class NMS
         (torchvision's class offset, from each image's own largest
-        coordinate) of every image in one nms_groups call."""
+        coordinate) of every image in one nms_groups call, whose statuses
+        come out unread as nms_status (B, 1)."""
         b, r, _ = proposals.shape
         c = self.num_classes
         pooled = multilevel_roi_align(feats[:4], proposals, STRIDES[:4], 7)
@@ -282,18 +290,20 @@ class MaskRCNN(nn.Module):
         top_classes = top_i % (c - 1) + 1
         offset = top_classes.to(top_boxes.dtype)[..., None] * (
             top_boxes.amax(dim=(1, 2)) + 1.0)[:, None, None]
-        keep, valid = nms_groups(top_boxes + offset, top_s, self.box_nms_thresh,
-                                 self.max_detections)
+        keep, valid, status = nms_groups(top_boxes + offset, top_s, self.box_nms_thresh,
+                                         self.max_detections)
         keep = keep.long()
         return {"boxes": torch.where(valid[..., None], _take(top_boxes, keep), 0.0),
                 "scores": torch.where(valid, _take(top_s, keep), 0.0),
                 "classes": torch.where(valid, _take(top_classes, keep), 0),
-                "valid": valid}
+                "valid": valid, "nms_status": status.view(b, 1)}
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         _, _, h, w = images.shape
         feats = self.features(images)
-        out = self.detect(feats, self.proposals(feats, h, w), h, w)
+        proposals, rpn_status = self.proposals(feats, h, w)
+        out = self.detect(feats, proposals, h, w)
+        out["nms_status"] = torch.cat([rpn_status, out["nms_status"]], 1)
         if self.with_masks:
             b, d = out["valid"].shape
             pooled = multilevel_roi_align(feats[:4], out["boxes"], STRIDES[:4], 14)

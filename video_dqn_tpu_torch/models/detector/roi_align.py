@@ -13,12 +13,14 @@ function at a quarter of the work, and without the four-level
 intermediate, which for a 12-view stop of 1,000 ROIs an image would take
 gigabytes. All levels of all images sit in one channels-last table of
 (positions, C), and each tap gathers its row there: no per-level
-selection, so no host synchronization.
+selection, and the levels' sizes, offsets and scales are made on the
+device once a shape, so no host synchronization.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from functools import lru_cache
+from typing import Sequence, Tuple
 
 import torch
 
@@ -101,6 +103,18 @@ def roi_levels(rois: torch.Tensor, num_levels: int, canonical_level: int = 2,
     return torch.clamp(target, 0, num_levels - 1).to(torch.long)
 
 
+@lru_cache(maxsize=64)
+def _level_tables(shapes: Tuple[Tuple[int, int, int], ...], strides: Tuple[int, ...],
+                  dtype: torch.dtype, device: torch.device):
+    """Each level's (h, w), first row in the table and scale, for maps of
+    (B, h, w) `shapes`: made once a shape and kept on the device (a tensor
+    from host lists at every call would be a copy that synchronizes)."""
+    sizes = torch.tensor([[h, w] for _, h, w in shapes], device=device)
+    starts = torch.tensor([0] + [b * h * w for b, h, w in shapes], device=device).cumsum(0)[:-1]
+    scales = torch.tensor([1.0 / s for s in strides], dtype=dtype, device=device)
+    return sizes, starts, scales
+
+
 def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], out_size: int = 7,
                          sampling_ratio: int = 2) -> torch.Tensor:
@@ -112,10 +126,9 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     dev = rois.device
     # one channels-last table of every level of every image
     table = torch.cat([f.permute(0, 2, 3, 1).reshape(-1, c) for f in feats])
-    sizes = torch.tensor([[f.shape[2], f.shape[3]] for f in feats], device=dev)
-    starts = torch.tensor([0] + [f.shape[0] * f.shape[2] * f.shape[3] for f in feats],
-                          device=dev).cumsum(0)[:-1]
-    scales = torch.tensor([1.0 / s for s in strides], dtype=rois.dtype, device=dev)
+    sizes, starts, scales = _level_tables(
+        tuple((f.shape[0], f.shape[2], f.shape[3]) for f in feats), tuple(strides),
+        rois.dtype, dev)
     flat = rois.reshape(b * r, 4)
     level = roi_levels(flat, len(feats))
     h, w = sizes[level, 0], sizes[level, 1]
