@@ -129,7 +129,38 @@ prints no result line):
      the published Q-net, 4 fake-env episodes, 4 in flight: one detector
      call a stop, bumped views, episodes/s and the detector's share of a
      stop;
-  12. a JSON line of every ported kernel, then the result line.
+  12. the dataset front end: (a) the Places365 AlexNet at full width
+     (seeded torchvision-named weights, the indoor classes' fc8 biases
+     centring the fixture frames' indoor probabilities on 0.5, saved as a
+     .pth and loaded through load_alexnet_places) behind the indoor
+     classifier on 32 and 256 fixture frames at 224 px: one bf16 identity
+     launch a call; bf16 against float32 on the card within 0.02 over the
+     top-10 classes bf16 took, the logits within 0.15, a frame moved
+     further than 0.02 only at a near tie of its 10th and 11th classes,
+     the largest move no larger than the JAX package's own bf16 model's
+     on these weights (tests/torch_frontend_util.py, pinned by
+     tests/test_torch_filters.py) and the swapped frames at most twice its
+     share; float32 card within 1e-4 of the CPU; ms a call, frames/s and
+     the busy share; (b) the filter CLI (video_dqn_tpu_torch.extract_frames)
+     over 40 fixture frames in 2 videos with (a)'s weights and phase 11's
+     seeded detector, the person's class bias centred on the card so that
+     half the fixture frames flag a person (random weights flag every
+     frame or none at a fixed bias), the videos made of frames clear of
+     that edge: two identity and two NMS launches a batch, resume writes
+     nothing, indoor_locs equal to a CPU run's wherever the CPU's smoothed
+     probability lies further than 0.02 from 0.5, every frame's person
+     flag and person_locs (float32 card) equal to the CPU's, both mixed;
+     then the CLI's rate in bf16 over 8 videos of 200 fixture frames
+     (full batches of 32): frames/s with decode, the decode, indoor and
+     detector shares, start-up apart; (c)
+     generate_sim_dataset (8 videos x 100 steps) and generate_inverse_pairs
+     (8 walks x 64 steps) in the furnished house at 224 px, every frame
+     written by save_images read back by the port's decoder within a mean
+     |difference| of 3.0 of its render; frames written/s and the encoder's
+     ms a 224^2 frame; then the training and inverse CLIs take 10 steps
+     each on what was written (published geometry, bf16), their losses
+     finite and their launches counted;
+  13. a JSON line of every ported kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -153,7 +184,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_dqn_tpu_torch import (_build, detect_real_videos, process_episodes,
+from video_dqn_tpu_torch import (_build, detect_real_videos, extract_frames, process_episodes,
                                  train_inverse_model, train_q_network)
 from video_dqn_tpu_torch import evaluate as evaluate_cli
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
@@ -165,9 +196,13 @@ from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.data.detect import COCO_TARGET_IDS
 from video_dqn_tpu_torch.data.device_dataset import DeviceDataset
 from video_dqn_tpu_torch.data.episodes import make_inverse_labeler
+from video_dqn_tpu_torch.data import filters as filters_mod
+from video_dqn_tpu_torch.data import sim_dataset
 from video_dqn_tpu_torch.data.feather import read_feather
+from video_dqn_tpu_torch.data.filters import (PERSON_CLASS, make_indoor_classifier,
+                                              person_in_top5)
 from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
-from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images
+from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images, save_images
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval import batched_runner
@@ -178,6 +213,7 @@ from video_dqn_tpu_torch.eval.load import load_eval_model
 from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file, name_from_config
 from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.eval.scorer import make_multiclass_scorer
+from video_dqn_tpu_torch.models.alexnet_places import load_alexnet_places
 from video_dqn_tpu_torch.models.bridge import flax_from_qnet_state_dict, layout
 from video_dqn_tpu_torch.models.detector import boxes as det_boxes
 from video_dqn_tpu_torch.models.detector.convert import convert_maskrcnn
@@ -204,6 +240,9 @@ import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
 from torch_detector_util import (  # noqa: E402  (phase 3's box layouts, phase 11's weights
     disjoint_boxes, identical_boxes, seeded_maskrcnn_state_dict,  # and matching)
     unmatched_detections)
+from torch_frontend_util import (  # noqa: E402  (phase 12's AlexNet weights and its
+    BF16_LOGIT_ATOL, FRONT_SEED, INDOOR_BF16_ATOL, JAX_BF16_MAX_MOVE,  # bf16 rule)
+    JAX_BF16_SWAP_SHARE, bf16_against_f32, centred_alexnet_state_dict, front_batch)
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -2239,16 +2278,17 @@ DETECTOR_EPISODES = 4
 FUSION_THRESHOLD = 0.3
 
 
-def detector_weights(path: Path) -> dict:
+def detector_weights(path: Path, levelled=tuple(COCO_TARGET_IDS.values())) -> dict:
     """Seeded torchvision-named maskrcnn_resnet50_fpn weights (seed 4,
     tests/torch_detector_util.py), saved to `path` as a .pth. Random
     weights score every class about alike and give every ROI nearly the
     same features, so one class would win everywhere. The class logits are
-    spread (cls_score's kernel x6) and the 5 target classes' biases set so
-    that their mean logits over a noise frame's proposals (a float32 CPU
-    run) stand level, TARGET_LOGIT_MARGIN above the best other class: each
-    ROI's own features then pick among the 5, detections above the fusion
-    threshold occur, and the class NMS's offsets separate several classes."""
+    spread (cls_score's kernel x6) and the `levelled` classes' biases (the
+    5 target classes; phase 12 adds the person) set so that their mean
+    logits over a noise frame's proposals (a float32 CPU run) stand level,
+    TARGET_LOGIT_MARGIN above the best other class: each ROI's own
+    features then pick among them, detections above the fusion threshold
+    occur, and the class NMS's offsets separate several classes."""
     sd = seeded_maskrcnn_state_dict(seed=SEED, with_masks=False)
     sd["roi_heads.box_predictor.cls_score.weight"] *= 6.0
     model = MaskRCNN().eval()
@@ -2260,7 +2300,7 @@ def detector_weights(path: Path) -> dict:
         logits, _ = model.roi_heads.box_scores(multilevel_roi_align(feats[:4], rois,
                                                                     STRIDES[:4], 7))
     mean = logits.mean(0)
-    targets = list(COCO_TARGET_IDS.values())
+    targets = list(levelled)
     others = [c for c in range(1, len(mean)) if c not in targets]
     sd["roi_heads.box_predictor.cls_score.bias"][targets] += (
         mean[others].max() + TARGET_LOGIT_MARGIN - mean[targets])
@@ -2686,6 +2726,529 @@ def detector_path() -> dict:
     return out
 
 
+# -- phase 12: the dataset front end -----------------------------------------------
+
+FRONT_BATCHES = (32, 256)
+INDOOR_F32_ATOL = 1e-4   # float32 card (no TF32) against the float32 CPU
+# bf16 card indoor probabilities against float32 card ones: the rule of
+# tests/torch_frontend_util.py bf16_against_f32 (INDOOR_BF16_ATOL over the
+# classes bf16 took, BF16_LOGIT_ATOL, moves beyond INDOOR_BF16_ATOL only
+# at near ties of the 10th and 11th classes), then no larger a move than
+# the JAX package's own bf16 model makes on these weights and frames
+# (JAX_BF16_MAX_MOVE) and at most this many times its share of frames
+# whose top-10 swapped: torch's autocast rounds other tensors than JAX's
+# bf16 model, so it may swap other near ties
+SWAP_SHARE_FACTOR = 2.0
+# the filter CLI's indoor_locs (bf16) are held to the CPU's wherever the
+# CPU's float32 smoothed probability lies further than this from 0.5: a
+# bf16 probability moves by up to INDOOR_BF16_ATOL, and so does its
+# smoothed mean, which is then rounded at 0.5
+FILTER_MARGIN = 0.02
+# the comparison's videos: 24 frames (the Gaussian's radius) in runs of
+# FILTER_RUN frames the seeded AlexNet scores indoor, then outdoor (the
+# smoothed probability crosses 0.5), and 16 (reflected more than once) in
+# runs of FILTER_RUN // 2 frames the detector flags, then does not
+FILTER_VIDEOS, FILTER_RUN = (24, 16), 12
+FILTER_BATCH = 32        # run_filter_pass's frames a call
+# the person's score margin (person_margins) of every frame in those
+# videos, on the card in float32, lies further than this from 0: ten
+# times phase 11's float32 card-vs-CPU limit on probabilities
+PERSON_MARGIN = 1e-3
+PERSON_BISECTIONS = 20   # of the person's fc bias shift, in [0, 4] logits
+# the filter pass's rate: a corpus of RATE_VIDEOS videos of RATE_FRAMES
+# fixture frames (the simulator's video length), so that 6 of every 7
+# calls are full batches
+RATE_VIDEOS, RATE_FRAMES = 8, 200
+SIM_VIDEOS, SIM_STEPS = 8, 100
+SIM_WALKS, SIM_WALK_STEPS = 8, 64
+SIM_TRAIN_STEPS = 10
+ENCODE_FRAMES = 256      # rendered frames a timed save_images call
+
+
+def front_frames() -> np.ndarray:
+    """The 32 committed fixture frames decoded to IMAGE_SIZE (resize of the
+    short edge, centre crop), in committed_frames' order."""
+    return load_images([str(p) for p in torch_qdata.committed_frames()], IMAGE_SIZE)
+
+
+def places_weights(path: Path, frames: np.ndarray) -> None:
+    """Seeded AlexNet-Places365 weights under torchvision's names (seed
+    FRONT_SEED), the indoor classes' fc8 biases shifted so that the
+    fixture frames' indoor probabilities centre on 0.5
+    (tests/torch_frontend_util.py centred_alexnet_state_dict), saved to
+    `path` as a .pth."""
+    torch.save(centred_alexnet_state_dict(FRONT_SEED, frames), path)
+
+
+def person_margins(detections: list) -> np.ndarray:
+    """Each frame's best person score less its 5th best other score (0
+    where it has fewer than 5 others; the best person score -1 where it
+    has none): person_in_top5 flags the frame where this is positive."""
+    out = []
+    for det in detections:
+        scores, classes = det["scores"], det["classes"]
+        person = scores[classes == PERSON_CLASS]
+        others = np.sort(scores[classes != PERSON_CLASS])[::-1]
+        out.append((person.max() if len(person) else -1.0)
+                   - (others[4] if len(others) > 4 else 0.0))
+    return np.asarray(out, np.float64)
+
+
+def person_weights(path: Path, frames: np.ndarray) -> np.ndarray:
+    """Phase 11's seeded detector with the person levelled with the 5
+    targets, then its class bias shifted (bisection on the card in float32)
+    until the median of the fixture frames' person_margins is 0, saved to
+    `path`; returns the margins at that shift. Random weights rank the
+    classes alike on every frame, so a fixed shift flags a person on every
+    frame or on none: centred, the margins spread about 0 by a few 1e-3
+    (PERSON_MARGIN keeps the comparison's frames clear of the edge)."""
+    sd = detector_weights(path, levelled=(*COCO_TARGET_IDS.values(), PERSON_CLASS))
+    detector = load_detector(str(path))
+    detector.dtype = torch.float32
+    bias = detector.model.roi_heads.box_predictor.cls_score.bias.data
+    base = float(bias[PERSON_CLASS])
+
+    def margins(shift: float) -> np.ndarray:
+        with torch.no_grad():
+            bias[PERSON_CLASS] = base + shift
+        with no_tf32():
+            return person_margins(detector(frames))
+
+    lo, hi = 0.0, 4.0
+    for _ in range(PERSON_BISECTIONS):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if np.median(margins(mid)) < 0 else (lo, mid)
+    shift = (lo + hi) / 2
+    sd["roi_heads.box_predictor.cls_score.bias"][PERSON_CLASS] += shift
+    torch.save(sd, path)
+    out = margins(shift)
+    log(f"[frontend] person: class bias +{shift:.6f} over the levelled targets; fixture "
+        f"frames' margins (float32 card) in [{out.min():.6f}, {out.max():.6f}], "
+        f"{int((out > PERSON_MARGIN).sum())} flagged and {int((out < -PERSON_MARGIN).sum())} "
+        f"not further than {PERSON_MARGIN} from the edge")
+    return out
+
+
+def indoor_calls(pth: Path, frames: np.ndarray) -> dict:
+    """Phase 12 (a): the indoor classifier at full width loaded through
+    load_alexnet_places, on 32 and 256 frames (the fixture's 32 and their
+    mirror images): one bf16 identity launch a call, bf16 against float32
+    on the card, float32 card against the CPU, ms a call and frames/s."""
+    clf = make_indoor_classifier(load_alexnet_places(str(pth)))
+    cpu = make_indoor_classifier(load_alexnet_places(str(pth), "cpu"), device="cpu")
+    out = {"launches": 0, "batches": {}}
+    for b in FRONT_BATCHES:
+        images = front_batch(frames, b)
+        clf(images)  # warm-up: cuDNN's plans, the allocator
+        torch.cuda.synchronize()
+        rn.LAUNCHES.clear()
+        bf16 = clf(images)
+        launches = dict(rn.LAUNCHES)
+        if launches != {("identity", "bfloat16"): 1}:
+            raise AssertionError(f"indoor classifier at B = {b}: launches {launches}, not one "
+                                 f"bf16 identity launch")
+        out["launches"] += 1
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            clf(images)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        with no_tf32():
+            clf.dtype = torch.float32
+            f32 = clf(images)
+            l32 = clf.logits(images).cpu().numpy()
+            clf.dtype = torch.bfloat16
+        ref = cpu(images)
+        d_cpu = float(np.abs(f32 - ref).max())
+        if not (np.isfinite(bf16).all() and d_cpu <= INDOOR_F32_ATOL
+                and ref.min() < 0.5 < ref.max()):
+            raise AssertionError(f"indoor classifier at B = {b}: float32 card vs CPU "
+                                 f"{d_cpu:.3e} (limit {INDOOR_F32_ATOL}), CPU range "
+                                 f"[{ref.min():.4f}, {ref.max():.4f}]")
+        d_bf16 = bf16_indoor_check(l32, clf.logits(images).cpu().numpy(), bf16,
+                                   clf.mask.cpu().numpy())
+        out["batches"][b] = {"ms": ms, "frames_per_s": b / ms * 1e3, "bf16_vs_f32": d_bf16,
+                             "f32_vs_cpu_max": d_cpu,
+                             "indoor_share_cpu": float((ref > 0.5).mean())}
+        log(f"[frontend] indoor classifier B = {b}: {ms:.4f} ms a call (host clock, median of "
+            f"10, copy in and out included), {b / ms * 1e3:.1f} frames/s; one bf16 identity "
+            f"launch; bf16 vs float32 card: max {d_bf16['max']:.3e} over bf16's top-10 "
+            f"classes, {d_bf16['max_with_swaps']:.3e} (limit {JAX_BF16_MAX_MOVE}) with the "
+            f"{d_bf16['swapped_frames']} frames whose top-10 swapped a near-tied class, "
+            f"{d_bf16['beyond_frames']} beyond {INDOOR_BF16_ATOL} (their float32 10th-11th "
+            f"logit gaps at most {d_bf16['beyond_tie_gap_max']:.4f}), logits within "
+            f"{d_bf16['logit_err_max']:.4f}; float32 card vs CPU max {d_cpu:.3e}; CPU "
+            f"probabilities in [{ref.min():.4f}, {ref.max():.4f}], {(ref > 0.5).mean():.3f} "
+            f"above 0.5")
+        if b == FRONT_BATCHES[-1]:
+            prof = device_profile(lambda: clf(images), 5)
+            log_profile(f"indoor classifier B = {b}", prof, top=8)
+            out["busy_share"] = prof["busy_share"]
+            out["device_ms"] = prof["device_ms"]
+    out["cpu_probs"] = cpu(frames)
+    return out
+
+
+def bf16_indoor_check(l32: np.ndarray, lbf: np.ndarray, bf16: np.ndarray,
+                      mask: np.ndarray) -> dict:
+    """bf16 indoor probabilities against float32 logits on the card, by
+    bf16_against_f32's rule; the largest move no larger than the JAX
+    package's own bf16 model's, and the frames whose top-10 swapped at
+    most SWAP_SHARE_FACTOR times its share."""
+    out = bf16_against_f32(l32, lbf, bf16, mask)
+    swap_limit = SWAP_SHARE_FACTOR * JAX_BF16_SWAP_SHARE * len(bf16)
+    if out["breaches"] or out["max_with_swaps"] > JAX_BF16_MAX_MOVE or \
+            out["swapped_frames"] > swap_limit:
+        raise AssertionError(f"indoor classifier bf16 vs float32 card: {out}; limits: logits "
+                             f"{BF16_LOGIT_ATOL}, probabilities {INDOOR_BF16_ATOL}, near ties "
+                             f"{2 * BF16_LOGIT_ATOL}, largest move {JAX_BF16_MAX_MOVE}, swapped "
+                             f"frames {swap_limit:.1f}")
+    return out
+
+
+class TimedCalls:
+    """A callable's wall seconds, summed over its calls (each ends in a
+    copy to the host, so its wall time is its whole cost), and what it
+    returned."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.outputs = fn, 0.0, []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.seconds += time.perf_counter() - t0
+        self.outputs.append(out)
+        return out
+
+
+@contextlib.contextmanager
+def filter_cli_spy(dtype=None):
+    """The filter CLI's pass, indoor classifier, detector and the pass's
+    decoder, each timed (what each returned kept); with `dtype`, both
+    models compute in it. Yields {"pass", "indoor", "detector", "decode"}:
+    TimedCalls."""
+    saved = extract_frames.make_indoor_classifier, extract_frames.load_detector, \
+        filters_mod.load_images, extract_frames.run_filter_pass
+    spy = {}
+
+    def make(model, device=None):
+        clf = saved[0](model, device=device)
+        clf.dtype = dtype or clf.dtype
+        spy["indoor"] = TimedCalls(clf)
+        return spy["indoor"]
+
+    def load(path, device=None):
+        detector = saved[1](path, device=device)
+        detector.dtype = dtype or detector.dtype
+        spy["detector"] = TimedCalls(detector)
+        return spy["detector"]
+
+    spy["decode"], spy["pass"] = TimedCalls(saved[2]), TimedCalls(saved[3])
+    extract_frames.make_indoor_classifier, extract_frames.load_detector = make, load
+    filters_mod.load_images, extract_frames.run_filter_pass = spy["decode"], spy["pass"]
+    try:
+        yield spy
+    finally:
+        extract_frames.make_indoor_classifier, extract_frames.load_detector, \
+            filters_mod.load_images, extract_frames.run_filter_pass = saved
+
+
+def run_filter_cli(root: Path, out: Path, places: Path, detector_pth: Path, device=None,
+                   dtype=None):
+    """The filter CLI over `root` into `out`, spied (filter_cli_spy);
+    returns ({video: its npy dict}, spy), the CLI's wall seconds in
+    spy["wall"]."""
+    argv = ["--frames", str(root), "--out", str(out), "--places-weights", str(places),
+            "--detector-weights", str(detector_pth)]
+    with filter_cli_spy(dtype) as spy, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        written = extract_frames.main(argv, device=device)
+        spy["wall"] = time.perf_counter() - t0
+    return {vid: np.load(p, allow_pickle=True)[()] for vid, p in written.items()}, spy
+
+
+def filter_frames_dir(root: Path, probs: np.ndarray, margins: np.ndarray) -> None:
+    """<root>/vid<k>/%04d.jpg: copies of the committed frames (1280x720 and
+    640x360 JPEGs, decoded and resized by the pass) whose person margin
+    lies further than PERSON_MARGIN from 0; vid00 in runs of FILTER_RUN
+    frames of the half the AlexNet scores indoor, then of the other half;
+    vid01 in runs of FILTER_RUN // 2 frames the detector flags, then of
+    frames it does not."""
+    sources = torch_qdata.committed_frames()
+    clear = np.flatnonzero(np.abs(margins) > PERSON_MARGIN)
+    by_prob = clear[np.argsort(probs[clear], kind="stable")]
+    half = len(by_prob) // 2
+    pools = [(by_prob[half:], by_prob[:half]),
+             (clear[margins[clear] > 0], clear[margins[clear] < 0])]
+    runs = (FILTER_RUN, FILTER_RUN // 2)
+    if min(len(p) for pair in pools for p in pair) < 2:
+        raise AssertionError(f"filter CLI: too few clear frames for its runs: indoor halves "
+                             f"{half}, person {[len(p) for p in pools[1]]}")
+    rng = np.random.default_rng(SEED)
+    for v, (n, pair, run) in enumerate(zip(FILTER_VIDEOS, pools, runs)):
+        (root / f"vid{v:02d}").mkdir(parents=True)
+        for i in range(n):
+            pool = pair[(i // run) % 2]
+            shutil.copyfile(sources[pool[rng.integers(len(pool))]],
+                            root / f"vid{v:02d}" / f"{i + 1:04d}.jpg")
+
+
+def filter_flags(spy: dict) -> np.ndarray:
+    """person_in_top5 of every frame the spied detector saw, as the CLI
+    computes it."""
+    return np.array([person_in_top5(d["classes"][np.argsort(-d["scores"])])
+                     for call in spy["detector"].outputs for d in call])
+
+
+def filter_cli(tmp: Path, places: Path, detector_pth: Path, probs: np.ndarray,
+               margins: np.ndarray) -> dict:
+    """Phase 12 (b): the filter CLI (video_dqn_tpu_torch.extract_frames)
+    over two videos of fixture frames with (a)'s AlexNet and
+    person_weights' detector: bf16 on the card (a warm-up run, then the
+    counted run), resume, float32 on the card and float32 on the CPU.
+    indoor_locs (bf16) equal the CPU's where the CPU's smoothed
+    probability lies further than FILTER_MARGIN from 0.5; the person flag
+    of every frame and person_locs (float32 card) equal the CPU's, both
+    mixed."""
+    root = tmp / "filter_frames"
+    filter_frames_dir(root, probs, margins)
+
+    def run(out: str, device=None, dtype=None):
+        return run_filter_cli(root, tmp / out, places, detector_pth, device, dtype)
+
+    run("filter_warm")
+    clear_counts()
+    bf16, _ = run("filter_bf16")
+    launches = detector_counts()
+    calls = sum(-(-n // FILTER_BATCH) for n in FILTER_VIDEOS)
+    if launches != {"identity": 2 * calls, "nms": 2 * calls}:
+        raise AssertionError(f"filter CLI: launches {launches}, not {2 * calls} identity (the "
+                             f"AlexNet's and the detector's) and {2 * calls} NMS")
+    clear_counts()
+    again, _ = run("filter_bf16")
+    if again or detector_counts() != {"identity": 0, "nms": 0}:
+        raise AssertionError(f"filter CLI resume: wrote {sorted(again)}, launches "
+                             f"{detector_counts()}")
+    with no_tf32():
+        card32, card32_spy = run("filter_f32", dtype=torch.float32)
+    cpu, cpu_spy = run("filter_cpu", device="cpu")
+    cpu_probs = np.concatenate(cpu_spy["indoor"].outputs)
+    flags, cpu_flags = filter_flags(card32_spy), filter_flags(cpu_spy)
+    frames = sum(FILTER_VIDEOS)
+    if not np.array_equal(flags, cpu_flags) or not 0 < cpu_flags.sum() < frames:
+        raise AssertionError(f"filter CLI: float32 card person flags {flags.astype(int)} vs "
+                             f"the CPU's {cpu_flags.astype(int)}")
+    held = mismatched = indoor = persons = 0
+    start = 0
+    for (vid, ref), n in zip(sorted(cpu.items()), FILTER_VIDEOS):
+        smoothed = filters_mod.gaussian_filter1d(cpu_probs[start:start + n], 6.0)
+        start += n
+        keep = np.flatnonzero(np.abs(smoothed - 0.5) > FILTER_MARGIN)
+        ours, theirs = set(bf16[vid]["indoor_locs"]), set(ref["indoor_locs"])
+        held += len(keep)
+        mismatched += sum((i in ours) != (i in theirs) for i in keep)
+        indoor += len(ref["indoor_locs"])
+        persons += len(ref["person_locs"])
+        if not np.array_equal(card32[vid]["person_locs"], ref["person_locs"]):
+            raise AssertionError(f"filter CLI {vid}: float32 card person_locs "
+                                 f"{card32[vid]['person_locs']} vs the CPU's {ref['person_locs']}")
+    if mismatched or sorted(bf16) != sorted(cpu) or not 0 < indoor < frames or \
+            not 0 < persons < frames:
+        raise AssertionError(f"filter CLI: {mismatched} of {held} held indoor flags differ "
+                             f"from the CPU's; videos {sorted(bf16)} vs {sorted(cpu)}; "
+                             f"{indoor} of {frames} frames indoor, {persons} with a person")
+    log(f"[frontend] filter CLI over {len(FILTER_VIDEOS)} videos, {frames} fixture frames "
+        f"(batch {FILTER_BATCH}): launches {launches}; resume wrote nothing; bf16 indoor_locs "
+        f"equal the CPU's on the {held} frames further than {FILTER_MARGIN} from 0.5 ({indoor} "
+        f"frames indoor on the CPU); float32 card person flags equal the CPU's on every frame "
+        f"({int(cpu_flags.sum())} flagged) and its person_locs too ({persons} frames)")
+    return {"launches": launches, "frames": frames, "held_indoor_flags": held,
+            "indoor_frames": indoor, "person_flags": int(cpu_flags.sum()),
+            "person_frames": persons}
+
+
+def filter_rate(tmp: Path, places: Path, detector_pth: Path) -> dict:
+    """Phase 12 (b): the filter CLI's rate in bf16 over RATE_VIDEOS videos
+    of RATE_FRAMES fixture frames (hard links, cycling through the 32),
+    after a warm-up run over one video of two full batches: frames/s of
+    the pass with decode, the decode, indoor and detector shares of it,
+    and the CLI's start-up (the two models' weights read and moved to the
+    card) apart."""
+    sources = torch_qdata.committed_frames()
+
+    def corpus(name: str, videos: int, n: int) -> Path:
+        root = tmp / name
+        for v in range(videos):
+            (root / f"vid{v:02d}").mkdir(parents=True)
+            for i in range(n):
+                os.link(sources[(v * n + i) % len(sources)], root / f"vid{v:02d}" / f"{i + 1:04d}.jpg")
+        return root
+
+    run_filter_cli(corpus("rate_warm", 1, 2 * FILTER_BATCH), tmp / "rate_warm_out", places,
+                   detector_pth)
+    root = corpus("rate_frames", RATE_VIDEOS, RATE_FRAMES)
+    clear_counts()
+    written, spy = run_filter_cli(root, tmp / "rate_out", places, detector_pth)
+    launches = detector_counts()
+    calls = RATE_VIDEOS * -(-RATE_FRAMES // FILTER_BATCH)
+    if len(written) != RATE_VIDEOS or launches != {"identity": 2 * calls, "nms": 2 * calls}:
+        raise AssertionError(f"filter CLI rate run: {len(written)} videos, launches {launches}, "
+                             f"not {2 * calls} identity and {2 * calls} NMS")
+    frames = RATE_VIDEOS * RATE_FRAMES
+    wall, seconds = spy["wall"], spy["pass"].seconds
+    shares = {k: spy[k].seconds / seconds for k in ("decode", "indoor", "detector")}
+    log(f"[frontend] filter CLI rate: {RATE_VIDEOS} videos x {RATE_FRAMES} fixture frames "
+        f"(batch {FILTER_BATCH}, {calls} calls, bf16): the pass {seconds:.3f} s, "
+        f"{frames / seconds:.1f} frames/s with decode; its shares: decode "
+        f"{shares['decode']:.4f}, indoor {shares['indoor']:.4f}, detector "
+        f"{shares['detector']:.4f}; start-up {wall - seconds:.3f} s of the CLI's {wall:.3f}; "
+        f"launches {launches}")
+    return {"launches": launches, "frames": frames, "calls": calls, "pass_seconds": seconds,
+            "frames_per_s": frames / seconds, "shares": shares, "startup_s": wall - seconds,
+            "wall_s": wall}
+
+
+def sim_loop(tmp: Path) -> dict:
+    """Phase 12 (c): generate_sim_dataset in the furnished house at 224 px
+    and generate_inverse_pairs beside it, every frame written by save_images
+    and read back by the port's decoder within a mean |difference| of
+    MEAN_BOUND of its render; the encoder's ms a frame; then both training
+    CLIs take SIM_TRAIN_STEPS steps on what was written (the published
+    geometry, bf16)."""
+    env, house = make_furnished_house(size_px=IMAGE_SIZE, seed=SEED)
+    written = []
+    saved = sim_dataset.save_images
+
+    def recording(paths, frames, quality=75):
+        written.append((list(paths), np.stack(frames)))
+        saved(paths, frames, quality=quality)
+
+    sim_dataset.save_images = recording
+    try:
+        t0 = time.perf_counter()
+        feather = sim_dataset.generate_sim_dataset(
+            env, house, str(tmp / "sim"), n_videos=SIM_VIDEOS, steps_per_video=SIM_STEPS,
+            reward_dist=1.0, seed=SEED, floor=None)
+        train_npy, val_npy, image_root = sim_dataset.generate_inverse_pairs(
+            env, str(tmp / "sim_pairs"), n_walks=SIM_WALKS, steps_per_walk=SIM_WALK_STEPS,
+            seed=SEED)
+        gen_s = time.perf_counter() - t0
+    finally:
+        sim_dataset.save_images = saved
+    n_frames = sum(len(p) for p, _ in written)
+    worst = 0.0
+    for paths, frames in written:
+        back = load_images(paths, IMAGE_SIZE)
+        worst = max(worst, float(np.abs(back.astype(np.int16) - frames).mean((1, 2, 3)).max()))
+    if n_frames != SIM_VIDEOS * SIM_STEPS + SIM_WALKS * SIM_WALK_STEPS or \
+            worst >= torch_qdata.MEAN_BOUND:
+        raise AssertionError(f"sim loop: {n_frames} frames written; read back within a mean "
+                             f"|difference| of {worst:.4f} (limit {torch_qdata.MEAN_BOUND})")
+    batch = np.concatenate([f for _, f in written])[:ENCODE_FRAMES]
+    enc_dir = tmp / "encode"
+    enc_dir.mkdir()
+    paths = [str(enc_dir / f"{i:04d}.jpg") for i in range(len(batch))]
+    encode_ms = {}
+    threads = os.environ.get("VDQN_JPEG_THREADS")
+    try:
+        for label, n in (("all_threads", "0"), ("one_thread", "1")):
+            os.environ["VDQN_JPEG_THREADS"] = n
+            save_images(paths, batch)
+            t0 = time.perf_counter()
+            save_images(paths, batch)
+            encode_ms[label] = (time.perf_counter() - t0) / len(batch) * 1e3
+    finally:
+        if threads is None:
+            os.environ.pop("VDQN_JPEG_THREADS", None)
+        else:
+            os.environ["VDQN_JPEG_THREADS"] = threads
+    cols = read_feather(feather)
+    rows = len(cols["before_image"])
+    rewards = int(sum(cols[f"sparse_reward{k}"].sum() for k in range(5)))
+    pairs = len(np.load(train_npy, allow_pickle=True)) + len(np.load(val_npy, allow_pickle=True))
+    log(f"[frontend] sim loop: {SIM_VIDEOS} videos x {SIM_STEPS} steps and {SIM_WALKS} walks x "
+        f"{SIM_WALK_STEPS} steps in the furnished house at {IMAGE_SIZE} px: {n_frames} frames "
+        f"in {gen_s:.2f} s, {n_frames / gen_s:.1f} frames written/s (render, geodesics and "
+        f"writes); {rows} feather rows, {rewards} sparse rewards, {pairs} pairs; read back "
+        f"within a mean |difference| of {worst:.4f} of the renders; the encoder "
+        f"{encode_ms['all_threads']:.4f} ms a {IMAGE_SIZE}^2 frame on all threads, "
+        f"{encode_ms['one_thread']:.4f} on one ({ENCODE_FRAMES} renders a call)")
+
+    folder = write_experiment(tmp / "sim_q", DATASET=feather, NUM_STEPS=SIM_TRAIN_STEPS,
+                              CHECKPOINT_INTERVAL=SIM_TRAIN_STEPS, TARGET_UPDATE_INTERVAL=5,
+                              TPU={"DEVICE_DATASET": True})
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, _ = train_q_network.main([folder, "--log-every", "5"])
+    q_s = time.perf_counter() - t0
+    q_launches = dict(rn.LAUNCHES)
+    losses = [r["value"] for r in read_metrics(ExperimentConfig(folder, resume=True).run_dir,
+                                               "avg_q_loss/train")]
+    if q_launches != {("identity", "bfloat16"): 2 * SIM_TRAIN_STEPS} or len(losses) != 2 or \
+            not np.isfinite(losses).all() or \
+            not (Path(folder) / "models" / f"sample{SIM_TRAIN_STEPS}.ckpt").exists():
+        raise AssertionError(f"sim loop Q-net: launches {q_launches}, losses {losses}")
+
+    inv_dir = tmp / "sim_inverse"
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, accuracy = train_inverse_model.main(
+            ["--train_data", train_npy, "--val_data", val_npy, "--image_root", image_root,
+             "--image_size", str(IMAGE_SIZE), "--batch_size", str(INV_BATCH), "--num_steps",
+             str(SIM_TRAIN_STEPS), "--lr", str(INV_LR), "--seed", str(SEED), "--out_dir",
+             str(inv_dir), "--cache-images"], validate_every=SIM_TRAIN_STEPS, val_batches=1)
+    inv_s = time.perf_counter() - t0
+    inv_launches = dict(rn.LAUNCHES)
+    scalars = read_metrics(str(inv_dir))
+    if inv_launches != {("identity", "bfloat16"): SIM_TRAIN_STEPS + 1 + 10} or \
+            len(scalars) != 4 or not all(np.isfinite(r["value"]) for r in scalars) or \
+            not np.isfinite(accuracy):
+        raise AssertionError(f"sim loop inverse: launches {inv_launches}, scalars {scalars}")
+    log(f"[frontend] sim loop training: the Q-net CLI {SIM_TRAIN_STEPS} steps at B = 256 "
+        f"(device table) in {q_s:.2f} s, EMA losses {losses}, launches {q_launches}; the "
+        f"inverse CLI {SIM_TRAIN_STEPS} steps at B = {INV_BATCH} (--cache-images) in "
+        f"{inv_s:.2f} s, scalars {[round(r['value'], 6) for r in scalars]}, final val accuracy "
+        f"{accuracy:.4f}, launches {inv_launches}")
+    return {"launches": q_launches[("identity", "bfloat16")]
+            + inv_launches[("identity", "bfloat16")],
+            "frames": n_frames, "generate_s": gen_s, "frames_per_s": n_frames / gen_s,
+            "feather_rows": rows, "sparse_rewards": rewards, "pairs": pairs,
+            "readback_mean_diff_max": worst, "encode_ms_per_frame": encode_ms,
+            "q_losses": losses, "q_seconds": q_s, "inverse_seconds": inv_s,
+            "inverse_final_val_accuracy": accuracy}
+
+
+def frontend_path() -> dict:
+    """Phase 12: (a) the indoor classifier's calls, (b) the filter CLI
+    against the CPU and its rate, (c) the simulator loop. launches sums
+    the four main-path runs, each counted from 0."""
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        frames = front_frames()
+        places = tmp / "alexnet_places365_seeded.pth"
+        places_weights(places, frames)
+        detector_pth = tmp / "maskrcnn_person_seeded.pth"
+        margins = person_weights(detector_pth, frames)
+        calls = indoor_calls(places, frames)
+        cli = filter_cli(tmp, places, detector_pth, calls.pop("cpu_probs"), margins)
+        rate = filter_rate(tmp, places, detector_pth)
+        sim = sim_loop(tmp)
+    runs = (cli, rate)
+    out = {"calls": calls, "cli": cli, "rate": rate, "sim": sim,
+           "launches": {"identity": calls["launches"] + sim["launches"]
+                        + sum(r["launches"]["identity"] for r in runs),
+                        "nms": sum(r["launches"]["nms"] for r in runs)}}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[frontend] phase 12 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> None:
     environment()
     build()
@@ -2700,6 +3263,7 @@ def main() -> None:
     ev = eval_path()
     ev_mesh = mesh_eval_path()
     det = detector_path()
+    front = frontend_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -2714,7 +3278,8 @@ def main() -> None:
             "launches": (serve["launches"][path] + train["launches"][path]
                          + real["launches"][path] + inv["launches"][path]
                          + label["launches"][path] + ev["launches"][path]
-                         + ev_mesh["launches"][path] + det["launches"].get(path, 0)),
+                         + ev_mesh["launches"][path] + det["launches"].get(path, 0)
+                         + front["launches"].get(path, 0)),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
@@ -2723,6 +3288,7 @@ def main() -> None:
             "launches_eval": ev["launches"][path],
             "launches_eval_mesh": ev_mesh["launches"][path],
             "launches_detector": det["launches"].get(path, 0),
+            "launches_frontend": front["launches"].get(path, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -2738,10 +3304,11 @@ def main() -> None:
         "route": "cuda",
         "source": "video_dqn_tpu_torch/csrc/nms.cu",
         "replaces": "video_dqn_tpu/models/detector/boxes.py:115",
-        "launches": det["launches"]["nms"],
+        "launches": det["launches"]["nms"] + front["launches"]["nms"],
         **{f"launches_{p}": 0 for p in ("serve", "train", "real_data", "inverse", "label",
                                         "eval", "eval_mesh")},
         "launches_detector": det["launches"]["nms"],
+        "launches_frontend": front["launches"]["nms"],
         # each counted launch is one nms_groups call: its mask and scan kernels
         "kernels_per_launch": len(NMS_KERNELS),
         "max_abs_err": 0.0,
@@ -2760,6 +3327,7 @@ def main() -> None:
     log(json.dumps({"eval": ev}))
     log(json.dumps({"eval_mesh": ev_mesh}))
     log(json.dumps({"detector": det}))
+    log(json.dumps({"frontend": front}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax, flax nor the JAX package,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither jax, flax, optax, scipy nor the
+JAX package, and its entry points run on the card unless the caller asks
+for the CPU."""
 
 import pkgutil
 import re
@@ -32,6 +33,9 @@ from video_dqn_tpu_torch.eval.runner import run_policy
 from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
 from video_dqn_tpu_torch.models.detector.inference import load_detector
 from video_dqn_tpu_torch.detect_real_videos import main as detect_cli
+from video_dqn_tpu_torch.data.filters import make_indoor_classifier
+from video_dqn_tpu_torch.extract_frames import main as extract_frames_cli
+from video_dqn_tpu_torch.models.alexnet_places import AlexNetPlaces365, load_alexnet_places
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,7 +43,7 @@ PORT = ROOT / "video_dqn_tpu_torch"
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages([str(PORT)], "video_dqn_tpu_torch."))
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|optax)\b|\bvideo_dqn_tpu\.", re.MULTILINE)
+    r"^\s*(import|from)\s+(jax|flax|optax|scipy)\b|\bvideo_dqn_tpu\.", re.MULTILINE)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -56,11 +60,12 @@ def test_every_module_imports_with_jax_blocked():
                  "sim.meshgen", "sim.native_mesh", "sim.mesh_twin", "sim.mesh_env",
                  "models.detector.boxes", "models.detector.roi_align",
                  "models.detector.maskrcnn", "models.detector.convert",
-                 "models.detector.inference", "detect_real_videos"):
+                 "models.detector.inference", "detect_real_videos", "data.filters",
+                 "data.sim_dataset", "models.alexnet_places", "extract_frames"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'flax', 'optax', 'video_dqn_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'scipy', 'video_dqn_tpu'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -75,9 +80,9 @@ def test_every_module_imports_with_jax_blocked():
 def test_sources_name_no_jax():
     files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cc"),
              ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py",
-             ROOT / "tests/torch_detector_util.py"]
-    assert {"jpeg_decode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc", "mesh.cc",
-            "resize_normalize.cu", "nms.cu"} <= {f.name for f in files}
+             ROOT / "tests/torch_detector_util.py", ROOT / "tests/torch_frontend_util.py"]
+    assert {"jpeg_decode.cc", "jpeg_encode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc",
+            "mesh.cc", "resize_normalize.cu", "nms.cu"} <= {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -88,6 +93,7 @@ def test_forbidden_pattern_spares_the_port_name():
     assert not FORBIDDEN.search("from video_dqn_tpu_torch.ops import image")
     assert FORBIDDEN.search("from video_dqn_tpu.ops import image")
     assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("    from scipy.ndimage import gaussian_filter1d")
 
 
 CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
@@ -121,13 +127,17 @@ EVAL_CFG = get_eval_defaults()
     lambda: results_cli(["no_such.yml"]),
     lambda: load_detector("no_such.pth"),
     lambda: detect_cli(["--stub", "--location", "no_such_folder"]),
+    lambda: make_indoor_classifier(AlexNetPlaces365()),
+    lambda: load_alexnet_places("no_such.pth"),
+    lambda: extract_frames_cli(["--frames", "no_such_folder", "--allow-passthrough"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
         "run_inverse_train", "train_inverse_model_main", "make_inverse_labeler",
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
         "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main",
-        "load_detector", "detect_real_videos_main"])
+        "load_detector", "detect_real_videos_main", "make_indoor_classifier",
+        "load_alexnet_places", "extract_frames_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -5,8 +5,8 @@ the sources in the package only, into _build/, and loaded with ctypes:
   * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS), compiled
     by nvcc for sm_90a into _build/libvdqn_kernels.so (`build`, `load`);
   * the host library: every csrc/host/*.cc (the JPEG decode stage, the
-    LZ4 frame decoder, the FMM solver, the fake env's raycaster and the
-    mesh simulator's BVH raycaster),
+    JPEG writer, the LZ4 frame decoder, the FMM solver, the fake env's
+    raycaster and the mesh simulator's BVH raycaster),
     compiled by the system C++ compiler into
     _build/libvdqn_host.so (`build_host`, `load_host`).
 Each source compiles in a compiler process of its own, all started
@@ -143,6 +143,9 @@ HOST = _Library(
     lambda out, objs: [_cxx(), "-shared", "-pthread", "-o", str(out), *map(str, objs)],
     {"vdqn_jpeg_decode_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                                  ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
+     "vdqn_jpeg_encode_batch": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+                                ctypes.c_int),
      "vdqn_lz4_frame_decode": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                 ctypes.c_int64], ctypes.c_int64),
      "vdqn_fmm_distance": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

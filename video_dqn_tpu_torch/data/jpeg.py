@@ -1,6 +1,8 @@
 """Batched JPEG decode for the training infeed (counterpart of
 video_dqn_tpu/data/qlearning.py `_load_image`/`load_images` and of the
-native stage video_dqn_tpu/data/native_decode.py `jpeg_batch`).
+native stage video_dqn_tpu/data/native_decode.py `jpeg_batch`), and the
+batched writer of the simulator's frames (counterpart of PIL's
+`Image.save`, which video_dqn_tpu/data/sim_dataset.py calls).
 
 `load_images(paths, size)` decodes a list of JPEG files to (N, size, size,
 3) uint8 in one call into the port's host library
@@ -10,6 +12,13 @@ _load_image's transform: PIL's draft-mode scaled decode, the bilinear
 resize of the smallest edge to `size` and the centre crop. A file the
 decoder cannot read (progressive, arithmetic-coded, 12-bit, CMYK,
 truncated, not a JPEG) raises with its path: there is no fallback.
+
+`save_images(paths, images, quality=75)` writes (N, H, W, 3) uint8 RGB
+frames as baseline JFIF files in one call into the same library
+(csrc/host/jpeg_encode.cc), threaded across images as the decoder is: the
+file libjpeg writes with its defaults (YCbCr 4:2:0, the Annex K tables
+scaled to `quality`, the islow DCT), which is PIL's `save` at the same
+quality, byte for byte. A file that cannot be written raises with its path.
 """
 
 from __future__ import annotations
@@ -35,6 +44,15 @@ STATUS = {
     9: "is truncated",
     10: "is a lossless or differential JPEG, which the decoder does not take",
     11: "is too large to decode",
+}
+
+
+# csrc/host/jpeg_encode.cc `Status`
+ENCODE_STATUS = {
+    1: "cannot be opened for writing",
+    2: "could not be written in full",
+    3: "has a size or quality the writer does not take",
+    4: "is too large to encode",
 }
 
 
@@ -68,3 +86,35 @@ def load_images(paths: Sequence[str], size: int) -> np.ndarray:
             f"{os.fsdecode(paths[first])} {STATUS.get(int(status[first]), 'failed')}"
             + (f" (and {len(bad) - 1} more)" if len(bad) > 1 else ""))
     return out
+
+
+def save_images(paths: Sequence[str], images, quality: int = 75) -> None:
+    """Write each (H, W, 3) uint8 RGB frame of `images` ((N, H, W, 3), or a
+    sequence of frames of one size) to the JPEG file at the matching path,
+    on `decode_threads()` threads. `quality` is libjpeg's, 1 to 100 (75 is
+    PIL's default; cv2's imwrite writes 95)."""
+    paths = [os.fsencode(p) for p in paths]
+    n = len(paths)
+    images = np.ascontiguousarray(images)
+    if n == 0 and images.size == 0:
+        return
+    if images.dtype != np.uint8 or images.ndim != 4 or images.shape[-1] != 3:
+        raise ValueError(f"save_images takes (N, H, W, 3) uint8 RGB frames, got "
+                         f"{images.dtype} {images.shape}")
+    if images.shape[0] != n:
+        raise ValueError(f"save_images got {n} paths for {images.shape[0]} frames")
+    if not 1 <= quality <= 100:
+        raise ValueError(f"quality must lie in 1..100, got {quality}")
+    _, h, w, _ = images.shape
+    status = np.zeros(n, np.int32)
+    names = (ctypes.c_char_p * n)(*paths)
+    failed = _build.load_host().vdqn_jpeg_encode_batch(
+        ctypes.cast(names, ctypes.c_void_p), n, images.ctypes.data, int(h), int(w),
+        int(quality), status.ctypes.data, decode_threads())
+    if failed:
+        bad = np.flatnonzero(status)
+        first = int(bad[0])
+        raise RuntimeError(
+            f"JPEG write failed for {failed} of {n} files; "
+            f"{os.fsdecode(paths[first])} {ENCODE_STATUS.get(int(status[first]), 'failed')}"
+            + (f" (and {len(bad) - 1} more)" if len(bad) > 1 else ""))

@@ -33,6 +33,12 @@ The inverse model (models/inverse.py) has a table of its own
 Flax `resnet`, the head convs, `fc1` with the same (H, W, C) <-> (C, H, W)
 reorder at its map's size, `fc2` and `fc_accuracy`. `entries(model)`
 gives either model's table.
+
+The Places365 AlexNet (models/alexnet_places.py) has the smallest table
+(`_alexnet_entries`, read by `alexnet_state_dict_from_flax`): the five
+convs and three denses of the JAX package's AlexNetPlaces365 under
+torchvision's `features.*` and `classifier.*` names, fc6 with the (6, 6,
+256) <-> (256, 6, 6) reorder.
 """
 
 from __future__ import annotations
@@ -417,3 +423,21 @@ def maskrcnn_state_dict_from_flax(params: Mapping, batch_stats: Mapping
     table = _maskrcnn_entries("mask_head" in params)
     return {**_from_table(params, "params", table),
             **_from_table(batch_stats, "batch_stats", table)}
+
+
+def _alexnet_entries() -> List[_Entry]:
+    """Every tensor of the port's AlexNetPlaces365 under torchvision's name,
+    with its path in the JAX package's AlexNetPlaces365 tree."""
+    out: List[_Entry] = []
+    for name, index in (("conv1", 0), ("conv2", 3), ("conv3", 6), ("conv4", 8), ("conv5", 10)):
+        out += _conv_bias(f"features.{index}", (name,))
+    out += _dense_bias("classifier.1", ("fc6",), _hwc_dense(256, 6, 6, 1))
+    out += _dense_bias("classifier.4", ("fc7",))
+    out += _dense_bias("classifier.6", ("fc8",))
+    return out
+
+
+def alexnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's AlexNetPlaces365 params, as a numpy tree, -> the
+    port's AlexNetPlaces365 state dict (torchvision's names)."""
+    return _from_table(params, "params", _alexnet_entries())
