@@ -160,13 +160,37 @@ prints no result line):
      ms a 224^2 frame; then the training and inverse CLIs take 10 steps
      each on what was written (published geometry, bf16), their losses
      finite and their launches counted;
-  13. a JSON line of every ported kernel, then the result line.
+  13. visualisation: (a) render_grid over the fake env at 224 px
+     (resolution 16, 169 navigable cells; views written/s), value maps of
+     the published Q-net (phase 4's seeded .torch file through
+     load_eval_model) in bf16 at resolution 1500, one bf16 identity launch
+     a batch of 64 cells (cells/s), within 0.05 of float32 card forwards
+     of the same cells, float32 card within 1e-4 of the CPU port on 8
+     cells, a panorama net over the grid once (the roll), and save_png's
+     ms for a rendered and an uncropped map, read back by the port's
+     reader; (b) make_allclass_scorer on a stop's 12 views of 256^2 (one
+     banded launch) and 224^2 (one identity launch), within 0.05 of
+     float32 card forwards; (c) the evaluate CLI with -v, one geodesic
+     fake-env episode at 224 px with SLAM in STOP mode on the card and on
+     the CPU: the same strip file, pixel-equal, and step logs equal the
+     CPU's and the card's without -v; the same episode through run_policy
+     with visualize_every 0 and 1 (the visualisation's host ms a logged
+     frame); (d) the training CLI with VISUALIZATION_DATA_ROOT at (a)'s
+     grid, B = 256, bf16, 10 steps on the fixture's device table: the
+     steps' launches counted before the hook, 5 PNGs at the checkpoint,
+     the online net's parameters, buffers and Adam's state bit-unchanged
+     across the hook, train mode restored, the hook's seconds;
+  14. a JSON line of every ported kernel, then the result line.
+Phase 1 also prints what frame extraction could decode with: the libav*
+and NVDEC libraries `ldconfig -p` lists and whether libnvcuvid.so.1
+loads (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import io
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -203,6 +227,7 @@ from video_dqn_tpu_torch.data.filters import (PERSON_CLASS, make_indoor_classifi
                                               person_in_top5)
 from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
 from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images, save_images
+from video_dqn_tpu_torch.data.png import read_png, save_png
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval import batched_runner
@@ -228,12 +253,16 @@ from video_dqn_tpu_torch.plan import mapper as mapper_mod
 from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
 from video_dqn_tpu_torch.sim import meshgen
 from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
-from video_dqn_tpu_torch.sim.gibson import relevant_locations
+from video_dqn_tpu_torch.sim.gibson import CLASS_LABELS, relevant_locations
 from video_dqn_tpu_torch.sim.mesh_env import MeshNavEnv
 from video_dqn_tpu_torch.sim.mesh_twin import TwinMesh
 from video_dqn_tpu_torch.sim.native_mesh import NativeMesh
 from video_dqn_tpu_torch.sim.ply import write_ply
 from video_dqn_tpu_torch.train import dqn, inverse
+from video_dqn_tpu_torch.viz.panorama import make_allclass_scorer
+from video_dqn_tpu_torch.viz.render_grid import render_grid
+from video_dqn_tpu_torch.viz.value_map import (VisualizationGrid, build_value_maps,
+                                               orientation_views, render_value_map)
 
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))
 import torch_qdata  # noqa: E402  (the fixture of phase 6 and its oracle check)
@@ -361,6 +390,28 @@ def environment() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    video_decode_probe()
+
+
+def video_decode_probe() -> None:
+    """What frame extraction could decode with on this machine (ROADMAP.md
+    queue 1 item 9, step 1): the libav* and NVDEC libraries the loader
+    knows, and whether NVDEC's libnvcuvid.so.1 loads. Prints; never
+    fails."""
+    try:
+        listed = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                                timeout=60).stdout
+        found = sorted({line.split()[0] for line in listed.splitlines()
+                        if re.search(r"avcodec|avformat|swscale|nvcuvid", line)})
+    except (OSError, subprocess.SubprocessError) as e:
+        found = [f"ldconfig failed: {e}"]
+    try:
+        ctypes.CDLL("libnvcuvid.so.1")
+        nvcuvid = "loads"
+    except OSError as e:
+        nvcuvid = f"does not load ({e})"
+    log(f"[probe] ldconfig -p lists for avcodec|avformat|swscale|nvcuvid: "
+        f"{found or 'nothing'}; libnvcuvid.so.1 {nvcuvid}")
 
 
 def build() -> None:
@@ -1768,7 +1819,8 @@ def geodesic_run(tmp: Path, device, stop: bool) -> dict:
                                                             size=IMAGE_SIZE, seed=SEED)
     with contextlib.redirect_stdout(io.StringIO()):
         run_policy(cfg, episodes, env_factory=env_factory, house_factory=house_factory,
-                   scorer_factory=lambda env, ci: make_geodesic_scorer(env), device=device)
+                   scorer_factory=lambda env, ci: make_geodesic_scorer(env),
+                   visualize_every=0, device=device)
     return DiskReader(str(Path(cfg.RESULT_LOCATION) / name_from_config(cfg))).data()
 
 
@@ -2166,7 +2218,8 @@ def mesh_geodesic_check(tmp: Path) -> dict:
             with contextlib.redirect_stdout(io.StringIO()):
                 run_policy(cfg, episodes, env_factory=lambda h, mc, c: template.clone(seed=SEED),
                            house_factory=lambda name: house, device=device,
-                           scorer_factory=lambda env, ci: make_geodesic_scorer(env))
+                           scorer_factory=lambda env, ci: make_geodesic_scorer(env),
+                           visualize_every=0)
             out[device, stop] = DiskReader(str(Path(cfg.RESULT_LOCATION)
                                                / name_from_config(cfg))).data()
     n = len(MESH_GEODESIC_EPISODES)
@@ -2196,8 +2249,10 @@ def mesh_scene_check(tmp: Path) -> dict:
     scene = tmp / "furnished.ply"
     write_ply(str(scene), *meshgen.furnished_house_mesh()[:3])
     cfg_path = tmp / "scene.yml"
+    # the CLI visualises episode 0 (every 100th, as JAX's does): its strip goes under tmp
     cfg_path.write_text("\n".join(_yaml({"SCORE": "geodesic", "SLAM": True, "SEED": SEED,
-                                          "RESULT_LOCATION": str(tmp / "results_scene")})) + "\n")
+                                          "RESULT_LOCATION": str(tmp / "results_scene"),
+                                          "VIDEO_LOCATION": str(tmp / "videos_scene")})) + "\n")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as text:
         mean = evaluate_cli.main(["--mesh-scene", str(scene), str(cfg_path)])
@@ -3249,6 +3304,379 @@ def frontend_path() -> dict:
     return out
 
 
+# -- phase 13: visualisation -------------------------------------------------------
+
+VIZ_RESOLUTION = 16        # render_grid's grid over the fake env: 169 navigable cells
+VIZ_CELLS = (100, 200)     # the navigable cells that grid must hold
+VIZ_MAP_RESOLUTION = 1500  # the value maps' grid (JAX's default, the training hook's)
+VIZ_BATCH = 64             # cells a value-map forward: 4 x 64 views
+VIZ_CPU_CELLS = 8          # cells whose float32 card scores are held to the CPU port's
+VIZ_CPU_ATOL = 1e-4        # float32 card against the CPU port
+VIZ_PNG_REPS = 10          # timed save_png calls a map
+
+
+def allclass_f32(model, views: np.ndarray) -> np.ndarray:
+    """The all-class scorer's function in float32 on the card, built apart
+    from it: the plain resize twin, the model outside autocast."""
+    x = torch.from_numpy(np.ascontiguousarray(views)).cuda()
+    b, f = x.shape[:2]
+    xn = rn.resize_normalize_reference(x.reshape((b * f,) + x.shape[2:]), IMAGE_SIZE)
+    xn = xn.permute(0, 2, 3, 1).reshape(b, f, IMAGE_SIZE, IMAGE_SIZE, 3)
+    with torch.no_grad():
+        return model(xn).amax(dim=-1).cpu().numpy()
+
+
+def map_values(maps: list, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """The cells' values in orientation-major order, as orientation_views
+    lays out their views: (4 * cells, classes)."""
+    return np.concatenate([m[rows, cols] for m in maps])
+
+
+def png_ms(image: np.ndarray, path: Path) -> float:
+    """Host ms of one save_png of `image` (mean of VIZ_PNG_REPS after a
+    warm call); the file must read back as the image."""
+    save_png(str(path), image)
+    t0 = time.perf_counter()
+    for _ in range(VIZ_PNG_REPS):
+        save_png(str(path), image)
+    ms = (time.perf_counter() - t0) / VIZ_PNG_REPS * 1e3
+    if not np.array_equal(read_png(str(path)), image):
+        raise AssertionError(f"{path}: read back unequal to the image written")
+    return ms
+
+
+def value_map_check(tmp: Path, ckpt: Path) -> dict:
+    """Phase 13 (a): render_grid over the fake env at 224 px; value maps of
+    the published Q-net in bf16 (one bf16 identity launch a batch of
+    cells), held to float32 card forwards of the same cells within
+    SERVE_ATOL and, on VIZ_CPU_CELLS cells, the float32 card to the CPU
+    port within VIZ_CPU_ATOL; a panorama net over the grid once; the PNG
+    writer's ms for a rendered map and an uncropped one."""
+    root = tmp / "grids" / "fake_house"
+    t0 = time.perf_counter()
+    cells = render_grid(FakeNavEnv(image_size=IMAGE_SIZE, seed=SEED), str(root),
+                        resolution=VIZ_RESOLUTION)
+    grid_s = time.perf_counter() - t0
+    if not VIZ_CELLS[0] <= cells <= VIZ_CELLS[1]:
+        raise AssertionError(f"render_grid: {cells} navigable cells, not in {VIZ_CELLS}")
+    source = SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt))
+    model = load_eval_model(source, published_config(), image_size=IMAGE_SIZE)
+    build_value_maps(model, str(root), False, resolution=VIZ_RESOLUTION, batch_size=VIZ_BATCH,
+                     image_size=IMAGE_SIZE)
+    batches = -(-cells // VIZ_BATCH)
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    maps, agg, free = build_value_maps(model, str(root), False, resolution=VIZ_MAP_RESOLUTION,
+                                       batch_size=VIZ_BATCH, image_size=IMAGE_SIZE)
+    maps_s = time.perf_counter() - t0
+    launches = dict(rn.LAUNCHES)
+    if launches != {("identity", "bfloat16"): batches} or free.sum() != cells:
+        raise AssertionError(f"value maps: launches {launches}, not {batches} bf16 identity; "
+                             f"{free.sum()} free cells of {cells}")
+    grid = VisualizationGrid(str(root), IMAGE_SIZE)
+    worst = 0.0
+    for rows, cols, images in grid.batches(VIZ_BATCH):
+        want = allclass_f32(model, orientation_views(images, False))
+        worst = max(worst, float(np.abs(map_values(maps, rows, cols) - want).max()))
+    rows, cols, images = next(grid.batches(VIZ_CPU_CELLS))
+    views = orientation_views(images, False)
+    with no_tf32():
+        card32 = allclass_f32(model, views)
+    cpu_model = load_eval_model(source, published_config(), image_size=IMAGE_SIZE, device="cpu")
+    cpu = make_allclass_scorer(cpu_model, image_size=IMAGE_SIZE, device="cpu")(views)
+    cpu_err = float(np.abs(card32 - cpu).max())
+    if worst > SERVE_ATOL or cpu_err > VIZ_CPU_ATOL:
+        raise AssertionError(f"value maps: bf16 vs float32 card {worst:.6f} (limit "
+                             f"{SERVE_ATOL}), float32 card vs cpu {cpu_err:.3g} (limit "
+                             f"{VIZ_CPU_ATOL})")
+    rendered = render_value_map(agg[:, :, 0], free)
+    full = render_value_map(agg[:, :, 0], free, crop=False)
+    ms = {"rendered": png_ms(rendered, tmp / "rendered.png"),
+          "uncropped": png_ms(full, tmp / "uncropped.png")}
+    shapes = {"rendered": list(rendered.shape), "uncropped": list(full.shape)}
+    del maps, agg, free, full
+
+    pano_config = published_config()
+    pano_config.PANORAMA = True
+    pano = init_qnet(build_qnet(pano_config, IMAGE_SIZE, device="cpu"),
+                     torch.Generator().manual_seed(SEED))
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pmaps, _, pfree = build_value_maps(pano, str(root), True, resolution=VIZ_RESOLUTION,
+                                       batch_size=VIZ_BATCH, image_size=IMAGE_SIZE)
+    pano_s = time.perf_counter() - t0
+    pano_launches = dict(rn.LAUNCHES)
+    rows, cols, images = next(grid.batches(VIZ_BATCH))
+    pano_err = float(np.abs(map_values(pmaps, rows, cols)
+                            - allclass_f32(pano, orientation_views(images, True))).max())
+    if pano_launches != {("identity", "bfloat16"): batches} or pfree.sum() != cells or \
+            pano_err > SERVE_ATOL:
+        raise AssertionError(f"panorama value maps: launches {pano_launches}, bf16 vs float32 "
+                             f"card {pano_err:.6f}")
+    log(f"[viz] render_grid over the fake env at {IMAGE_SIZE} px, resolution {VIZ_RESOLUTION}: "
+        f"{cells} cells, {4 * cells} views written in {grid_s:.3f} s, "
+        f"{4 * cells / grid_s:.1f} views/s (render and JPEG writes)")
+    log(f"[viz] value maps of the published Q-net (bf16), {cells} cells x 4 orientations at "
+        f"resolution {VIZ_MAP_RESOLUTION}: {maps_s:.3f} s, {cells / maps_s:.1f} cells/s "
+        f"(decode, forwards, maps); launches {launches}; bf16 vs float32 card max "
+        f"{worst:.6f} (limit {SERVE_ATOL}); float32 card vs cpu on {VIZ_CPU_CELLS} cells "
+        f"{cpu_err:.3g} (limit {VIZ_CPU_ATOL}); panorama net (4 frames rolled) {pano_s:.3f} s, "
+        f"launches {pano_launches}, first batch bf16 vs float32 card {pano_err:.6f}")
+    log(f"[viz] save_png: a rendered map {shapes['rendered']} {ms['rendered']:.4f} ms, an "
+        f"uncropped map {shapes['uncropped']} {ms['uncropped']:.4f} ms (host, mean of "
+        f"{VIZ_PNG_REPS})")
+    return {"root": root, "cells": cells, "grid_s": grid_s, "views_per_s": 4 * cells / grid_s,
+            "maps_s": maps_s, "cells_per_s": cells / maps_s, "bf16_vs_f32": worst,
+            "f32_vs_cpu": cpu_err, "panorama_s": pano_s, "panorama_bf16_vs_f32": pano_err,
+            "png_ms": ms, "png_shapes": shapes,
+            "launches": {"identity": launches[("identity", "bfloat16")]
+                         + pano_launches[("identity", "bfloat16")], "banded": 0}}
+
+
+def allclass_check(ckpt: Path) -> dict:
+    """Phase 13 (b): make_allclass_scorer on a stop's 12 fake-env views at
+    256^2 (one banded bf16 launch) and 224^2 (one identity launch), within
+    SERVE_ATOL of float32 card forwards; host ms a call (median of 10)."""
+    model = load_eval_model(SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt)),
+                            published_config(), image_size=IMAGE_SIZE)
+    scorer = make_allclass_scorer(model, image_size=IMAGE_SIZE)
+    out = {"launches": {"identity": 0, "banded": 0}}
+    for side, path in ((256, "banded"), (IMAGE_SIZE, "identity")):
+        env = FakeNavEnv(image_size=side, seed=SEED)
+        env.set_agent_state(*env.sample_start_state())
+        views = np.stack([env.step(1)[0]["rgb"] for _ in range(STOP_VIEWS)])
+        scorer(views)
+        rn.LAUNCHES.clear()
+        got = scorer(views)
+        launches = dict(rn.LAUNCHES)
+        err = float(np.abs(got - allclass_f32(model, views[:, None])).max())
+        if launches != {(path, "bfloat16"): 1} or got.shape != (STOP_VIEWS, 5) or \
+                err > SERVE_ATOL:
+            raise AssertionError(f"all-class scorer at {side}^2: launches {launches}, shape "
+                                 f"{got.shape}, bf16 vs float32 card {err:.6f}")
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            scorer(views)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[side] = {"bf16_vs_f32": err, "ms": float(np.median(times))}
+        out["launches"][path] += launches[(path, "bfloat16")]
+        log(f"[viz] make_allclass_scorer, {STOP_VIEWS} views of {side}^2 ({path} kernel): "
+            f"{out[side]['ms']:.4f} ms a call (host clock with the copy back, median of 10), "
+            f"bf16 vs float32 card max {err:.6f} (limit {SERVE_ATOL}), launches {launches}")
+    return out
+
+
+@contextlib.contextmanager
+def fake_env_at(size: int):
+    """The evaluate CLI's --fake-env episode rendered at `size` px (the CLI
+    makes it at 32)."""
+    saved = evaluate_cli.make_env_and_episode
+    evaluate_cli.make_env_and_episode = lambda *a, **kw: saved(*a, size=size, **kw)
+    try:
+        yield
+    finally:
+        evaluate_cli.make_env_and_episode = saved
+
+
+def strip_config(tmp: Path, tag: str):
+    """The strips' evaluation config: geodesic, SLAM, STOP mode, its
+    results and strips under `tmp`."""
+    cfg = get_eval_defaults()
+    cfg.SCORE, cfg.SLAM, cfg.SEED, cfg.STOP = "geodesic", True, SEED, True
+    cfg.RESULT_LOCATION, cfg.VIDEO_LOCATION = str(tmp / f"results_{tag}"), str(tmp / f"videos_{tag}")
+    return cfg
+
+
+def strip_cli(tmp: Path, tag: str, device, visualize: bool) -> tuple:
+    """One geodesic fake-env episode at 224 px with SLAM, STOP mode,
+    through the evaluate CLI, with -v when `visualize`. Returns (step
+    logs, the strip files)."""
+    cfg = strip_config(tmp, tag)
+    path = tmp / f"{tag}.yml"
+    path.write_text("\n".join(_yaml({k: cfg[k] for k in (
+        "SCORE", "SLAM", "SEED", "STOP", "RESULT_LOCATION", "VIDEO_LOCATION")})) + "\n")
+    with fake_env_at(IMAGE_SIZE), contextlib.redirect_stdout(io.StringIO()):
+        evaluate_cli.main(["--fake-env", *(["-v"] if visualize else []), str(path)],
+                          device=device)
+    logs = DiskReader(str(Path(cfg.RESULT_LOCATION) / name_from_config(cfg))).data()
+    return logs, sorted(Path(cfg.VIDEO_LOCATION).rglob("*.png"))
+
+
+def strip_seconds(tmp: Path, tag: str, visualize_every: int) -> tuple:
+    """The CLI's episode through run_policy on the card with
+    `visualize_every`, the env made before the clock starts. Returns
+    (seconds, frames logged, seconds inside log_frame, step logs)."""
+    cfg = strip_config(tmp, tag)
+    with fake_env_at(IMAGE_SIZE):
+        env, house, ep = evaluate_cli.make_env_and_episode()
+    frames = [0, 0.0]
+    log_frame = mapper_mod.log_frame
+
+    def counted(planner, obs, action):
+        t0 = time.perf_counter()
+        log_frame(planner, obs, action)
+        frames[0] += 1
+        frames[1] += time.perf_counter() - t0
+
+    mapper_mod.log_frame = counted
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_policy(cfg, np.array([ep], dtype=object), env_factory=lambda h, mc, c: env,
+                       house_factory=lambda name: house, visualize_every=visualize_every)
+        seconds = time.perf_counter() - t0
+    finally:
+        mapper_mod.log_frame = log_frame
+    logs = DiskReader(str(Path(cfg.RESULT_LOCATION) / name_from_config(cfg))).data()
+    return seconds, frames[0], frames[1], logs
+
+
+def same_logs(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        len(a[k]) == len(b[k]) and all(np.array_equal(x[0], y[0]) and list(x[1:]) == list(y[1:])
+                                       for x, y in zip(a[k], b[k])) for k in a)
+
+
+def strip_check(tmp: Path) -> dict:
+    """Phase 13 (c): the evaluate CLI with -v (sequential, one geodesic
+    fake-env episode at 224 px, SLAM) on the card and on the CPU: the
+    same strip file, pixel-equal read back by the port's reader, and the
+    step logs of the same episode through run_policy without
+    visualisation. The cost a logged frame: that episode through
+    run_policy with visualize_every 0, 1, 0, 1, the faster run of each
+    kind (the first may pay start-up)."""
+    card, card_png = strip_cli(tmp, "card", None, True)
+    cpu, cpu_png = strip_cli(tmp, "cpu", "cpu", True)
+    names = [[p.relative_to(tmp / f"videos_{t}") for p in pngs]
+             for t, pngs in (("card", card_png), ("cpu", cpu_png))]
+    if len(card_png) != 1 or names[0] != names[1]:
+        raise AssertionError(f"strips: card {names[0]}, cpu {names[1]}")
+    runs = {0: [], 1: []}
+    for i, every in enumerate((0, 1, 0, 1)):
+        runs[every].append(strip_seconds(tmp, f"timed_{i}", every))
+    frames = {n for _, n, _, _ in runs[1]}
+    if any(n for _, n, _, _ in runs[0]) or len(frames) != 1 or \
+            list((tmp / "videos_timed_0").rglob("*.png")):
+        raise AssertionError(f"strips: frames logged {runs[0]} without visualisation, "
+                             f"{frames} with")
+    strip, cpu_strip = read_png(str(card_png[0])), read_png(str(cpu_png[0]))
+    if not np.array_equal(strip, cpu_strip) or not same_logs(card, cpu) or \
+            not all(same_logs(card, logs) for k in (0, 1) for _, _, _, logs in runs[k]):
+        raise AssertionError("strips: the card's strip or step logs differ from the CPU's "
+                             "or from the runs without visualisation")
+    frames = frames.pop()
+    in_log_frame = min(t for _, _, t, _ in runs[1]) / frames * 1e3
+    runs = {k: [t for t, _, _, _ in v] for k, v in runs.items()}
+    plain_s, visualised_s = min(runs[0]), min(runs[1])
+    per_frame = (visualised_s - plain_s) / frames * 1e3
+    log(f"[viz] evaluate CLI -v, 1 geodesic fake-env episode at {IMAGE_SIZE} px (STOP: "
+        f"{len(card[0])} logged steps): the strip {names[0][0]} ({strip.shape[0]}x"
+        f"{strip.shape[1]}) equals the CPU's; step logs equal the CPU's and run_policy's "
+        f"without visualisation; run_policy on the card {visualised_s:.3f} s with "
+        f"visualize_every=1, {plain_s:.3f} s with 0 (faster of 2 each; all {runs}): "
+        f"{frames} frames logged, {per_frame:.4f} ms a frame; inside log_frame "
+        f"{in_log_frame:.4f} ms a frame (the faster run), host")
+    return {"steps": len(card[0]), "frames": frames, "strip_shape": list(strip.shape),
+            "visualised_s": visualised_s, "plain_s": plain_s, "runs_s": runs,
+            "ms_per_frame": per_frame, "log_frame_ms": in_log_frame}
+
+
+def state_snapshot(state) -> list:
+    """Copies of the online net's parameters and buffers and Adam's state."""
+    tensors = list(state.model.state_dict().values())
+    for group in state.optimizer.state.values():
+        tensors += [v for v in group.values() if torch.is_tensor(v)]
+    return [t.detach().clone() for t in tensors]
+
+
+def hook_check(tmp: Path, root: Path) -> dict:
+    """Phase 13 (d): the training CLI with VISUALIZATION_DATA_ROOT at (a)'s
+    grid, the published config at B = 256, bf16, 10 steps on the fixture's
+    device table, a checkpoint at 10: 5 PNGs under the run dir; the online
+    net's parameters and buffers and Adam's state bit-unchanged across the
+    hook; the net back in train mode; the hook's seconds."""
+    folder = write_experiment(tmp / "viz_q", DATASET=torch_qdata.FEATHER,
+                              NUM_STEPS=SIM_TRAIN_STEPS, CHECKPOINT_INTERVAL=SIM_TRAIN_STEPS,
+                              TARGET_UPDATE_INTERVAL=5, TPU={"DEVICE_DATASET": True},
+                              VISUALIZATION_DATA_ROOT=str(root.parent))
+    saved = train_q_network.value_map_hook
+    seen = {}
+
+    def spy(config, device):
+        hook = saved(config, device)
+
+        def timed(model, state, step):
+            before = state_snapshot(state)
+            torch.cuda.synchronize()
+            seen["train_launches"] = dict(rn.LAUNCHES)
+            rn.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            hook(model, state, step)
+            torch.cuda.synchronize()
+            seen["seconds"] = time.perf_counter() - t0
+            seen["launches"] = dict(rn.LAUNCHES)
+            rn.LAUNCHES.clear()
+            after = state_snapshot(state)
+            seen["unchanged"] = len(before) == len(after) and all(
+                torch.equal(a, b) for a, b in zip(before, after))
+            seen["train_mode"] = model.training and not model.resnet.training
+            seen["step"] = step
+
+        return timed
+
+    train_q_network.value_map_hook = spy
+    rn.LAUNCHES.clear()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_q_network.main([folder, "--log-every", "5"])
+    finally:
+        train_q_network.value_map_hook = saved
+    after = dict(rn.LAUNCHES)  # what ran after the hook: nothing
+    run_dir = Path(ExperimentConfig(folder, resume=True).run_dir)
+    pngs = sorted(p.name for p in run_dir.glob("*.png"))
+    want = sorted(f"value_map_{root.name}_{c}_{SIM_TRAIN_STEPS}.png" for c in CLASS_LABELS)
+    batches = -(-len(VisualizationGrid(str(root))) // VIZ_BATCH)
+    train = seen.get("train_launches")
+    if pngs != want or not seen.get("unchanged") or not seen.get("train_mode") or \
+            seen.get("launches") != {("identity", "bfloat16"): batches} or \
+            train != {("identity", "bfloat16"): 2 * SIM_TRAIN_STEPS} or after:
+        raise AssertionError(f"checkpoint hook: PNGs {pngs}, state unchanged "
+                             f"{seen.get('unchanged')}, train mode {seen.get('train_mode')}, "
+                             f"launches {seen.get('launches')}, the steps' {train}, after "
+                             f"the hook {after}")
+    log(f"[viz] training CLI with VISUALIZATION_DATA_ROOT, B = 256, bf16, {SIM_TRAIN_STEPS} "
+        f"steps: the hook at step {seen['step']} took {seen['seconds']:.3f} s ({batches} "
+        f"bf16 identity launches, 5 maps at resolution {VIZ_MAP_RESOLUTION}; the steps "
+        f"before it {train}); parameters, "
+        f"buffers and Adam's state bit-unchanged across it, train mode restored; {pngs}")
+    return {"hook_s": seen["seconds"], "pngs": len(pngs),
+            "launches": {"identity": train[("identity", "bfloat16")]
+                         + seen["launches"][("identity", "bfloat16")], "banded": 0}}
+
+
+def viz_path() -> dict:
+    """Phase 13: (a) value maps, (b) the all-class scorer, (c) episode
+    strips, (d) the checkpoint hook. launches sums the main-path runs,
+    each counted from 0."""
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        ckpt = tmp / "qnet.torch"
+        seeded_checkpoint(ckpt, published_config())
+        maps = value_map_check(tmp, ckpt)
+        allclass = allclass_check(ckpt)
+        strips = strip_check(tmp)
+        hook = hook_check(tmp, maps.pop("root"))
+    runs = (maps, allclass, hook)
+    out = {"value_maps": maps, "allclass": allclass, "strips": strips, "hook": hook,
+           "launches": {p: sum(r["launches"][p] for r in runs) for p in ("identity", "banded")}}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[viz] phase 13 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> None:
     environment()
     build()
@@ -3264,6 +3692,7 @@ def main() -> None:
     ev_mesh = mesh_eval_path()
     det = detector_path()
     front = frontend_path()
+    viz = viz_path()
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -3279,7 +3708,7 @@ def main() -> None:
                          + real["launches"][path] + inv["launches"][path]
                          + label["launches"][path] + ev["launches"][path]
                          + ev_mesh["launches"][path] + det["launches"].get(path, 0)
-                         + front["launches"].get(path, 0)),
+                         + front["launches"].get(path, 0) + viz["launches"][path]),
             "launches_serve": serve["launches"][path],
             "launches_train": train["launches"][path],
             "launches_real_data": real["launches"][path],
@@ -3289,6 +3718,7 @@ def main() -> None:
             "launches_eval_mesh": ev_mesh["launches"][path],
             "launches_detector": det["launches"].get(path, 0),
             "launches_frontend": front["launches"].get(path, 0),
+            "launches_viz": viz["launches"][path],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -3309,6 +3739,7 @@ def main() -> None:
                                         "eval", "eval_mesh")},
         "launches_detector": det["launches"]["nms"],
         "launches_frontend": front["launches"]["nms"],
+        "launches_viz": 0,
         # each counted launch is one nms_groups call: its mask and scan kernels
         "kernels_per_launch": len(NMS_KERNELS),
         "max_abs_err": 0.0,
@@ -3328,6 +3759,7 @@ def main() -> None:
     log(json.dumps({"eval_mesh": ev_mesh}))
     log(json.dumps({"detector": det}))
     log(json.dumps({"frontend": front}))
+    log(json.dumps({"viz": viz}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

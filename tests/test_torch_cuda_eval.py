@@ -95,7 +95,8 @@ def geodesic_results(tmp_path, device, stop):
     cfg.RESULT_LOCATION = str(tmp_path / str(device))
     episodes, env_factory, house_factory = make_episode_set(2, size=64, seed=4)
     run_policy(cfg, episodes, env_factory=env_factory, house_factory=house_factory,
-               scorer_factory=lambda env, ci: make_geodesic_scorer(env), device=device)
+               scorer_factory=lambda env, ci: make_geodesic_scorer(env), visualize_every=0,
+               device=device)
     return DiskReader(str(tmp_path / str(device) / name_from_config(cfg))).data()
 
 

@@ -171,3 +171,44 @@ def test_cli_labels_from_either_checkpoint_kind(episodes, tmp_path, capsys):
     process_cli.main(base, device="cpu")
     assert "WARNING: no --inverse-model" in capsys.readouterr().out
     assert "inverse_actions" not in read_feather(out)
+
+
+def test_cli_takes_the_jax_clis_inverse_flax_flag(episodes, tmp_path, monkeypatch):
+    """The JAX CLI's command line, flag for flag: --inverse-flax names the
+    models dir there (its parse and what it hands on are recorded, the
+    labelling stubbed) and here, where it writes the feather that its
+    alias --inverse-ckpt writes."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from video_dqn_tpu.data import episodes as jax_episodes_mod
+    from video_dqn_tpu.train import inverse as jax_inverse
+
+    state = create_inverse_state(image_size=64, device="cpu")
+    state.model.load_state_dict(inverse_state_dict_from_flax(*flax_vars(64), 64))
+    save_checkpoint(str(tmp_path / "models"), 3, flax_state_dict(state))
+    argv = ["--location", episodes, "--inverse-flax", str(tmp_path / "models"),
+            "--image-size", "64"]
+    seen = []
+    monkeypatch.setattr(jax_inverse, "load_inverse_checkpoint",
+                        lambda path, image_size: seen.append((path, image_size)) or
+                        (None, SimpleNamespace(params=None, batch_stats=None)))
+    monkeypatch.setattr(jax_episodes_mod, "make_inverse_labeler", lambda *a: "labeler")
+    monkeypatch.setattr(jax_episodes_mod, "process_episodes",
+                        lambda location, inverse_labeler, image_size:
+                        seen.append((location, inverse_labeler, image_size)) or "stub")
+    path = Path(__file__).resolve().parents[1] / "dataset" / "process_episodes_real.py"
+    spec = importlib.util.spec_from_file_location("jax_process_episodes_cli", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    monkeypatch.setattr(sys, "argv", ["process_episodes_real.py", *argv])
+    module.main()
+    assert seen == [(str(tmp_path / "models"), 64), (episodes, "labeler", 64)]
+    flax = read_feather(process_cli.main(argv, device="cpu"))
+    alias = read_feather(process_cli.main(
+        [a if a != "--inverse-flax" else "--inverse-ckpt" for a in argv], device="cpu"))
+    assert "inverse_actions" in flax and flax.keys() == alias.keys()
+    for k in flax:
+        np.testing.assert_array_equal(flax[k], alias[k])

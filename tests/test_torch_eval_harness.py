@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from video_dqn_tpu.core.disk_logger import DiskLogger as JaxDiskLogger
 from video_dqn_tpu.core.disk_logger import DiskReader as JaxDiskReader
@@ -24,6 +25,7 @@ from video_dqn_tpu.eval.fixtures import make_episode_set as jax_episode_set
 from video_dqn_tpu_torch import evaluate as evaluate_cli
 from video_dqn_tpu_torch import results as results_cli
 from video_dqn_tpu_torch.core.disk_logger import DiskLogger, DiskReader
+from video_dqn_tpu_torch.data.png import read_png
 from video_dqn_tpu_torch.eval.batched_runner import run_policy_batched
 from video_dqn_tpu_torch.eval.evaluate import make_geodesic_scorer, ours_evaluate
 from video_dqn_tpu_torch.eval.fixtures import make_env_and_episode, make_episode_set
@@ -132,6 +134,7 @@ def test_sequential_geodesic_runs_match_jax(tmp_path, stop, batched):
     want_cfg, got_cfg = cfgs(SLAM=True, SEED=1, STOP=stop, BATCHED_REASONING=batched)
     want_cfg.RESULT_LOCATION = str(tmp_path / "jax")
     got_cfg.RESULT_LOCATION = str(tmp_path / "port")
+    want_cfg.VIDEO_LOCATION = str(tmp_path / "videos")  # JAX's episode 0 is visualised
     # in STOP mode an episode runs on past its goal to MAX_STEPS: one will do
     n = 1 if stop else 2
     want_eps, want_env, want_house = jax_episode_set(n, size=32, seed=4)
@@ -141,7 +144,8 @@ def test_sequential_geodesic_runs_match_jax(tmp_path, stop, batched):
     jax_run_policy(want_cfg, want_eps, env_factory=want_env, house_factory=want_house,
                    scorer_factory=lambda env, ci: jax_geodesic(env), visualize_every=10 ** 9)
     run_policy(got_cfg, got_eps, env_factory=got_env, house_factory=got_house,
-               scorer_factory=lambda env, ci: make_geodesic_scorer(env), device="cpu")
+               scorer_factory=lambda env, ci: make_geodesic_scorer(env), visualize_every=0,
+               device="cpu")
     want = read_results(want_cfg, JaxDiskReader)
     got = read_results(got_cfg, DiskReader)
     if stop:
@@ -188,9 +192,11 @@ def load_jax_cli(name):
 
 def test_evaluate_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(ROOT)
+    # without -v both CLIs visualise episode 0: its strip goes under tmp_path
+    videos = f"VIDEO_LOCATION: '{tmp_path / 'videos'}'\n"
     for tag in ("jax", "port"):
         (tmp_path / f"{tag}.yml").write_text(
-            f"SLAM: True\nSEED: 1\nSTOP: True\nRESULT_LOCATION: '{tmp_path / tag}'\n")
+            f"SLAM: True\nSEED: 1\nSTOP: True\nRESULT_LOCATION: '{tmp_path / tag}'\n" + videos)
     monkeypatch.setattr(sys, "argv", ["run.py", "--fake-env", str(tmp_path / "jax.yml")])
     load_jax_cli("run").main()
     evaluate_cli.main(["--fake-env", str(tmp_path / "port.yml")], device="cpu")
@@ -199,7 +205,8 @@ def test_evaluate_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch, caps
     capsys.readouterr()
     # the results CLIs print the same lines over the same shards
     spl_cfg = tmp_path / "spl.yml"
-    spl_cfg.write_text(f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / 'spl'}'\n")
+    spl_cfg.write_text(f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / 'spl'}'\n"
+                       + videos)
     evaluate_cli.main(["--fake-env", str(spl_cfg)], device="cpu")
     capsys.readouterr()
     assert results_cli.main([str(spl_cfg)], device="cpu") > 0
@@ -215,8 +222,9 @@ def test_evaluate_cli_writes_what_the_jax_cli_writes(tmp_path, monkeypatch, caps
                                    ["--furnished-env", "--workload", "1"], ["-v", "--fake-env"]],
                          ids=["mesh_env", "mesh_scene", "furnished_env", "visualize"])
 def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
-    """The mesh flags run one episode as the JAX CLI does, with the same
-    SPL; -v raises until the visualisation is ported (item 8)."""
+    """The mesh flags and -v refused until their items were ported; now
+    each runs one episode as the JAX CLI does, with the same SPL, and -v
+    writes the episode's strip under the same name with the same pixels."""
     from video_dqn_tpu.sim.meshgen import maze_mesh
     from video_dqn_tpu.sim.ply import write_ply
 
@@ -225,17 +233,24 @@ def test_evaluate_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
                                                        "#.....#", "#######"]))
     for tag in ("jax", "port"):
         (tmp_path / f"{tag}.yml").write_text(
-            f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / tag}'\n")
-    if "-v" in flags:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            evaluate_cli.main([*flags, str(tmp_path / "port.yml")], device="cpu")
-        return
+            f"SLAM: True\nSEED: 1\nRESULT_LOCATION: '{tmp_path / tag}'\n"
+            f"VIDEO_LOCATION: '{tmp_path / ('videos_' + tag)}'\n")
     monkeypatch.setattr(sys, "argv", ["run.py", *flags, str(tmp_path / "jax.yml")])
     load_jax_cli("run").main()
     assert evaluate_cli.main([*flags, str(tmp_path / "port.yml")], device="cpu") is not None
     got = read_results(load_file(str(tmp_path / "port.yml")), DiskReader)
     want = read_results(jax_load_file(str(tmp_path / "jax.yml")), JaxDiskReader)
     assert got == want and list(got) == [0]
+    strips = [sorted(p.relative_to(tmp_path / f"videos_{tag}")
+                     for p in (tmp_path / f"videos_{tag}").rglob("*.png"))
+              for tag in ("port", "jax")]
+    assert strips[0] == strips[1] and len(strips[0]) == 1  # episode 0, with -v or without
+    got = read_png(str(tmp_path / "videos_port" / strips[0][0]))
+    want = np.asarray(Image.open(tmp_path / "videos_jax" / strips[1][0]))
+    if "-v" in flags:  # the fake env renders bit-equal
+        np.testing.assert_array_equal(got, want)
+    else:  # a mesh pixel on two coplanar faces may show either (test_torch_mesh_sim.py)
+        assert got.shape == want.shape and (got != want).any(axis=-1).mean() < 1e-3
 
 
 @pytest.mark.parametrize("over", [{"SCORE": "detector"}, {"COMBINE_DETECTOR": True},
@@ -257,6 +272,7 @@ def test_detector_configs_raise_naming_item_7(over, tmp_path, capsys):
     assert (got_det is None) == ("SCORE" not in over and "COMBINE_DETECTOR" not in over)
     want_cfg.RESULT_LOCATION = str(tmp_path / "jax")
     got_cfg.RESULT_LOCATION = str(tmp_path / "port")
+    want_cfg.VIDEO_LOCATION = str(tmp_path / "videos")  # JAX's episode 0 is visualised
     want_eps, want_env, want_house = jax_episode_set(1, size=32, seed=4)
     got_eps, got_env, got_house = make_episode_set(1, size=32, seed=4)
     calls = []
@@ -265,7 +281,8 @@ def test_detector_configs_raise_naming_item_7(over, tmp_path, capsys):
                    scorer_factory=lambda env, ci: jax_geodesic(env), visualize_every=10 ** 9)
     calls.append([ln for ln in capsys.readouterr().out.splitlines() if "Detector" in ln])
     run_policy(got_cfg, got_eps, env_factory=got_env, house_factory=got_house,
-               scorer_factory=lambda env, ci: make_geodesic_scorer(env), device="cpu")
+               scorer_factory=lambda env, ci: make_geodesic_scorer(env), visualize_every=0,
+               device="cpu")
     calls.append([ln for ln in capsys.readouterr().out.splitlines() if "Detector" in ln])
     assert_same_logs(read_results(got_cfg, DiskReader), read_results(want_cfg, JaxDiskReader))
     assert calls[0] == calls[1] and len(calls[0]) == (got_det is not None)
@@ -324,13 +341,14 @@ def test_evaluate_cli_model_scored_batched_equals_sequential(tmp_path, monkeypat
     model = init_qnet(HabitatDQN(action_dim=3, extra_capacity=False, panorama=False,
                                  image_size=32), torch.Generator().manual_seed(4))
     torch.save({"model_state_dict": model.state_dict()}, tmp_path / "qnet.torch")
+    videos = f"VIDEO_LOCATION: '{tmp_path / 'videos'}'\n"  # the sequential run's episode 0
     spl = {}
     for tag, flags in (("batched", ["--batched", "2", "--pipeline-depth", "2"]),
                        ("sequential", [])):
         (tmp_path / f"{tag}.yml").write_text(
             f"SCORE: 'model'\nSLAM: True\nSEED: 1\nMODEL_CONFIG_LOCATION: '{model_dir}'\n"
             f"PRETRAINED_MODEL_LOCATION: '{tmp_path / 'qnet.torch'}'\n"
-            f"RESULT_LOCATION: '{tmp_path / tag}'\n")
+            f"RESULT_LOCATION: '{tmp_path / tag}'\n" + videos)
         evaluate_cli.main([str(tmp_path / f"{tag}.yml"), "--workload", "2", *flags],
                           device="cpu")
         cfg = load_file(str(tmp_path / f"{tag}.yml"))

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax, flax, optax, scipy nor the
-JAX package, and its entry points run on the card unless the caller asks
-for the CPU."""
+JAX package, nor PIL, cv2, matplotlib, imageio or tensorboardX (the card's
+machine has none of them), and its entry points run on the card unless the
+caller asks for the CPU."""
 
 import pkgutil
 import re
@@ -36,14 +37,20 @@ from video_dqn_tpu_torch.detect_real_videos import main as detect_cli
 from video_dqn_tpu_torch.data.filters import make_indoor_classifier
 from video_dqn_tpu_torch.extract_frames import main as extract_frames_cli
 from video_dqn_tpu_torch.models.alexnet_places import AlexNetPlaces365, load_alexnet_places
+from video_dqn_tpu_torch.viz.panorama import make_allclass_scorer
+from video_dqn_tpu_torch.viz.value_map import build_value_maps
+from video_dqn_tpu_torch.visualize_value import main as visualize_value_cli
+from video_dqn_tpu_torch.visualize_panorama import main as visualize_panorama_cli
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "video_dqn_tpu_torch"
 MODULES = sorted(
     m.name for m in pkgutil.walk_packages([str(PORT)], "video_dqn_tpu_torch."))
+BLOCKED = ("jax", "flax", "optax", "scipy", "PIL", "cv2", "matplotlib", "imageio",
+           "tensorboardX")
 FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|optax|scipy)\b|\bvideo_dqn_tpu\.", re.MULTILINE)
+    rf"^\s*(import|from)\s+({'|'.join(BLOCKED)})\b|\bvideo_dqn_tpu\.", re.MULTILINE)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -61,11 +68,14 @@ def test_every_module_imports_with_jax_blocked():
                  "models.detector.boxes", "models.detector.roi_align",
                  "models.detector.maskrcnn", "models.detector.convert",
                  "models.detector.inference", "detect_real_videos", "data.filters",
-                 "data.sim_dataset", "models.alexnet_places", "extract_frames"):
+                 "data.sim_dataset", "models.alexnet_places", "extract_frames",
+                 "data.png", "core.metrics", "viz", "viz.colormaps", "viz.value_map",
+                 "viz.panorama", "viz.render_grid", "plan.visualize", "visualize_value",
+                 "visualize_panorama"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'flax', 'optax', 'scipy', 'video_dqn_tpu'):\n"
+        f"for name in {BLOCKED + ('video_dqn_tpu',)!r}:\n"
         "    sys.modules[name] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -94,6 +104,9 @@ def test_forbidden_pattern_spares_the_port_name():
     assert FORBIDDEN.search("from video_dqn_tpu.ops import image")
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    from scipy.ndimage import gaussian_filter1d")
+    for name in ("PIL", "cv2", "matplotlib", "imageio", "tensorboardX"):
+        assert FORBIDDEN.search(f"    from {name} import x") and FORBIDDEN.search(f"import {name}")
+    assert not FORBIDDEN.search("from .data.png import save_png  # PIL's pixels")
 
 
 CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
@@ -130,6 +143,11 @@ EVAL_CFG = get_eval_defaults()
     lambda: make_indoor_classifier(AlexNetPlaces365()),
     lambda: load_alexnet_places("no_such.pth"),
     lambda: extract_frames_cli(["--frames", "no_such_folder", "--allow-passthrough"]),
+    lambda: make_allclass_scorer(HabitatDQN(panorama=False, image_size=64)),
+    lambda: build_value_maps(HabitatDQN(panorama=False, image_size=64), "no_such_folder",
+                             False),
+    lambda: visualize_value_cli(["no_such_folder", "--data-root", "no_such_folder"]),
+    lambda: visualize_panorama_cli(["--size", "32"]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
@@ -137,7 +155,8 @@ EVAL_CFG = get_eval_defaults()
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
         "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main",
         "load_detector", "detect_real_videos_main", "make_indoor_classifier",
-        "load_alexnet_places", "extract_frames_main"])
+        "load_alexnet_places", "extract_frames_main", "make_allclass_scorer",
+        "build_value_maps", "visualize_value_main", "visualize_panorama_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -395,12 +395,14 @@ def run_both(tmp_path, episodes, jax_episodes, env_factories, house_factories, *
              house_factories[1], JaxDiskReader, {"visualize_every": 10 ** 9}),
             ("port", get_eval_defaults, run_policy, episodes, env_factories[0],
              house_factories[0], DiskReader,
-             {"scorer_factory": lambda env, ci: make_geodesic_scorer(env), "device": "cpu"})):
+             {"scorer_factory": lambda env, ci: make_geodesic_scorer(env),
+              "visualize_every": 0, "device": "cpu"})):
         cfg = defaults()
         cfg.SCORE, cfg.SLAM, cfg.SEED = "geodesic", True, 1
         for k, v in over.items():
             cfg[k] = v
         cfg.RESULT_LOCATION = str(tmp_path / tag)
+        cfg.VIDEO_LOCATION = str(tmp_path / f"videos_{tag}")  # JAX's episode 0 is visualised
         runner(cfg, episodes=eps, env_factory=env_f, house_factory=house_f, **kw)
         out.append(reader(str(tmp_path / tag / name_from_config(cfg))).data())
     return out
@@ -538,10 +540,10 @@ def test_gibson_get_env_passes_the_house_floor_count(tmp_path, monkeypatch):
 
 
 def test_render_grid_sees_the_same_mesh_env(tmp_path, maze_envs):
-    """The JAX package's visualisation-grid producer (viz/render_grid.py,
-    not ported yet: ROADMAP.md queue 1, item 8) reads the port's mesh env
-    through the NavEnv interface and writes what it writes from the JAX
-    package's env."""
+    """The JAX package's visualisation-grid producer (viz/render_grid.py)
+    reads the port's mesh env through the NavEnv interface and writes what
+    it writes from the JAX package's env (the port's own render_grid is
+    held to JAX's in tests/test_torch_viz.py)."""
     from video_dqn_tpu.viz.render_grid import render_grid
 
     counts = []

@@ -122,8 +122,13 @@ def test_planner_matches_jax_along_a_scripted_trajectory(fix_thrashing):
 
 
 def test_planner_refuses_visualisation_and_needs_cuda_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DepthMapperAndPlanner(log_visualization=True, device="cpu")
+    """log_visualization raised until item 8a; now the planner takes it and
+    starts each episode with no frame logged."""
+    planner = DepthMapperAndPlanner(log_visualization=True, device="cpu")
+    planner._reset(1.0, start_pos=np.zeros(3), start_ang=0.0)
+    assert planner.log_visualization
+    assert planner.last_frame is None
+    assert planner.current_pan is None and planner.current_open is None
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -4,13 +4,13 @@ sample<N>.ckpt that the JAX package restores, resumes with -r, deletes old
 runs with -d, writes the JAX package's `log` text, and its EMA loss tracks
 the JAX CLI's on the same folder and the same rows."""
 
-import shutil
 import sys
 from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
+from PIL import Image
 
 import train_q_network as jax_cli
 from video_dqn_tpu.core import ExperimentConfig as JaxExperimentConfig
@@ -21,6 +21,9 @@ from video_dqn_tpu_torch import train_q_network
 from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
 from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.train.dqn import flax_state_dict
+from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
+from video_dqn_tpu_torch.sim.gibson import CLASS_LABELS
+from video_dqn_tpu_torch.viz.render_grid import render_grid
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 from tests.test_torch_checkpoint import jax_template, leaves_equal
 
@@ -125,9 +128,25 @@ def test_cli_loss_tracks_the_jax_cli(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_the_value_map_hook(tmp_path):
+    """VISUALIZATION_DATA_ROOT raised until item 8a. Now each checkpoint is
+    followed by one value map a class for every grid folder under it,
+    under the JAX CLI's add_image names, and the run's checkpoints are
+    bit-equal to those of the same run without it."""
     viz = tmp_path / "grids"
-    viz.mkdir()
-    folder = folder_with(tmp_path / "exp", extra=f"VISUALIZATION_DATA_ROOT: '{viz}'\n")
-    with pytest.raises(NotImplementedError, match="VISUALIZATION_DATA_ROOT.*ROADMAP.md"):
-        train_q_network.main([folder], device="cpu")
-    shutil.rmtree(viz)
+    cells = render_grid(FakeNavEnv(image_size=96, seed=3), str(viz / "fake_house"),
+                        resolution=4)
+    (viz / "notes.txt").write_text("not a grid folder")
+    plain = folder_with(tmp_path / "plain")
+    hooked = folder_with(tmp_path / "hooked", extra=f"VISUALIZATION_DATA_ROOT: '{viz}'\n")
+    train_q_network.main([plain], device="cpu")
+    train_q_network.main([hooked], device="cpu")
+    pngs = sorted(p.name for p in (Path(hooked) / "run1").glob("*.png"))
+    assert pngs == sorted(f"value_map_fake_house_{label}_{step}.png"
+                          for label in CLASS_LABELS for step in (2, 4))
+    assert not list((Path(plain) / "run1").glob("*.png"))
+    for name in pngs:  # one pixel a grid cell, cropped to the grid's cells
+        img = np.asarray(Image.open(Path(hooked) / "run1" / name))
+        assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[0] * img.shape[1] >= cells
+    for step in (2, 4):
+        leaves_equal(restore_checkpoint(str(Path(hooked) / "models"), step),
+                     restore_checkpoint(str(Path(plain) / "models"), step))

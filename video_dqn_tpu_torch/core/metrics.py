@@ -1,6 +1,8 @@
-"""Training scalars as newline-delimited JSON, `<run dir>/metrics.jsonl`
-(counterpart of video_dqn_tpu/core/metrics.py, which also mirrors them to
-tensorboardX when it is installed; the port writes the JSON lines only)."""
+"""Training scalars as newline-delimited JSON, `<run dir>/metrics.jsonl`,
+and images as `<run dir>/<tag with "/" -> "_">_<step>.png` (counterpart of
+video_dqn_tpu/core/metrics.py, which also mirrors both to tensorboardX when
+it is installed; the port writes the files only). A failed image write
+raises with its path, where the JAX package passes over it."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import json
 import os
 import time
 from typing import List, Optional
+
+from ..data.png import save_png
 
 
 class MetricsWriter:
@@ -19,6 +23,16 @@ class MetricsWriter:
     def add_scalar(self, tag: str, value: float, step: int) -> None:
         self._jsonl.write(json.dumps({"tag": tag, "value": float(value), "step": int(step),
                                       "ts": time.time()}) + "\n")
+
+    def add_image(self, tag: str, image, step: int) -> str:
+        """Write an HWC (or HW) uint8 image as a PNG next to the jsonl;
+        returns its path."""
+        path = os.path.join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png")
+        save_png(path, image)
+        return path
+
+    def flush(self) -> None:
+        self._jsonl.flush()
 
     def close(self) -> None:
         self._jsonl.close()

@@ -27,13 +27,16 @@ from __future__ import annotations
 
 import inspect
 import math
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..data.detect import COCO_TARGET_IDS
 from ..plan.mapper import DepthMapperAndPlanner
+from ..plan.visualize import write_combined
 from ..sim.gibson import relevant_objects
+from .policy_config import name_from_config
 
 SUCCESS_DISTANCE = 1.0
 MAX_STEPS = 500
@@ -203,9 +206,13 @@ def episode_generator(
     stepping, mapping and planning happen inside; only Q scoring crosses
     the boundary, which is what lets a batched runner fuse the score calls
     of many episodes. Without a `planner`, one is made that maps on
-    `device` (None: the card); `visualize` asks that planner for the
-    visualisation, which raises (ROADMAP.md, queue 1, item 8). With
-    COMBINE_DETECTOR, `detector` fuses into each stop's scores."""
+    `device` (None: the card). With `visualize` and SLAM the planner logs
+    every step's frames and the episode's last rgb | depth | map strip is
+    written under VIDEO_LOCATION/<name_from_config> as JAX names it; the
+    JAX package also keeps a captioned strip of each stop in
+    `planner.current_pan`, which no file receives and which stays None
+    here until the captions are ported (ROADMAP.md, queue 1, item 8b).
+    With COMBINE_DETECTOR, `detector` fuses into each stop's scores."""
     hn, floor, class_label, goal_dist, pos, rot = ep
 
     rng = np.random.default_rng(config.SEED)
@@ -245,6 +252,11 @@ def episode_generator(
     agent_steps_taken = 0
 
     def output():
+        if visualize and config.SLAM and planner.log_visualization:
+            write_combined(
+                planner, os.path.join(config.VIDEO_LOCATION, name_from_config(config)),
+                name="%04d_%s-%dm-spl%.2f-steps%d"
+                % (epind, class_label, int(goal_dist), spl, agent_steps_taken))
         return np.array(log, dtype=object) if config.STOP else spl
 
     # score_dest (the geodesic oracle has one): openlist entries carry the

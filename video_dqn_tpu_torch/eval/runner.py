@@ -67,7 +67,7 @@ def run_policy(
     house_factory: Optional[Callable] = None,
     scorer_factory: Optional[Callable] = None,
     detector=None,
-    visualize_every: int = 0,
+    visualize_every: int = 100,
     debug: bool = False,
     episodes_path: str = "evaluation/val_episodes.npy",
     resume: bool = False,
@@ -86,8 +86,9 @@ def run_policy(
                        geodesic oracle (SCORE: detector too)
       detector:        the fusion detector; the default is
                        build_detector_from_config's
-    `visualize_every` > 0 would visualise every that many episodes, which
-    raises (ROADMAP.md, queue 1, item 8); 0, the default, never does.
+    Every `visualize_every`-th episode (from episode 0; 100 as in the JAX
+    package, 0 never) is visualised: with SLAM its last rgb | depth | map
+    strip is written under VIDEO_LOCATION (eval/evaluate.py).
     """
     device = resolve_device(device)
     np.random.seed(config.SEED)

@@ -21,9 +21,9 @@ from .._device import resolve_device
 from ..ops.resize_normalize import resize_normalize
 
 
-def _scores(model, images: torch.Tensor, cls: torch.Tensor,
-            image_size: int) -> torch.Tensor:
-    """images: uint8 (B, F, H, W, 3) on the model's device; cls: (B,)."""
+def q_values(model, images: torch.Tensor, image_size: int) -> torch.Tensor:
+    """images: uint8 (B, F, H, W, 3) on the model's device -> the Q-net's
+    (B, classes, actions) float32."""
     b, f = images.shape[0], images.shape[1]
     on_card = images.device.type == "cuda"
     # on the card the kernel writes bf16, which the first convolution reads
@@ -33,11 +33,18 @@ def _scores(model, images: torch.Tensor, cls: torch.Tensor,
     # (B*F, 3, S, S) channels_last is (B*F, S, S, 3) contiguous: both views
     x = x.permute(0, 2, 3, 1).reshape(b, f, image_size, image_size, 3)
     with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=on_card):
-        q = model(x)
-    return q[torch.arange(b, device=q.device), cls].amax(dim=-1)
+        return model(x)
 
 
-def _as_views(images) -> np.ndarray:
+def _scores(model, images: torch.Tensor, cls: torch.Tensor,
+            image_size: int) -> torch.Tensor:
+    """images: uint8 (B, F, H, W, 3) on the model's device; cls: (B,)."""
+    q = q_values(model, images, image_size)
+    return q[torch.arange(q.shape[0], device=q.device), cls].amax(dim=-1)
+
+
+def as_views(images) -> np.ndarray:
+    """uint8 (V, H, W, 3) or (V, F, H, W, 3) views as (V, F, H, W, 3)."""
     x = np.asarray(images)
     if x.ndim == 4:  # (V, H, W, 3) single-frame
         x = x[:, None]
@@ -47,7 +54,9 @@ def _as_views(images) -> np.ndarray:
     return x
 
 
-def _place(model, device) -> torch.device:
+def place(model, device) -> torch.device:
+    """Move `model` to `device` (None: the card) in channels_last, in eval
+    mode; returns the device."""
     device = resolve_device(device)
     model.to(device, memory_format=torch.channels_last).eval()
     return device
@@ -58,10 +67,10 @@ def make_model_scorer(model, class_index: int, image_size: int = 224,
     """Batched panorama scorer for one goal class: uint8 (V, F, H, W, 3)
     -> (V,) float32. ONE forward for all V views. Moves `model` to
     `device` (None: the card)."""
-    device = _place(model, device)
+    device = place(model, device)
 
     def scorer(images_uint8) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(_as_views(images_uint8))).to(device)
+        x = torch.from_numpy(np.ascontiguousarray(as_views(images_uint8))).to(device)
         cls = torch.full((x.shape[0],), class_index, device=device)
         with torch.no_grad():
             return _scores(model, x, cls, image_size).cpu().numpy()
@@ -88,11 +97,11 @@ def make_multiclass_scorer(model, image_size: int = 224, bucket: bool = True,
     off. `.dispatch` is non-blocking on the card: it copies through a
     pinned host buffer, enqueues the forward and the copy back to a pinned
     buffer, and records an event; `.gather` waits on that event."""
-    device = _place(model, device)
+    device = place(model, device)
     on_card = device.type == "cuda"
 
     def dispatch(images, cls):
-        x = _as_views(images)
+        x = as_views(images)
         c = np.asarray(cls, np.int64).reshape(-1)
         b = x.shape[0]
         if c.shape != (b,):

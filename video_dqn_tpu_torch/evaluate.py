@@ -21,9 +21,12 @@ two-floor house with --furnished-env, on the mesh simulator with
 renders at the model's TPU.IMAGE_SIZE. -p writes a torch.profiler trace to
 RESULT_LOCATION/<name_from_config>_trace.json.
 
-Not ported yet: the episode videos of -v (ROADMAP.md queue 1, item 8),
-which raise. Unlike the JAX CLI, no episode is visualised unless -v is
-given.
+A sequential run visualises every 100th episode, from episode 0, and with
+-v every episode, as the JAX CLI does: with SLAM the episode's last rgb |
+depth | map strip is written to VIDEO_LOCATION/<name_from_config>/
+<episode>_<class>-<dist>m-spl<spl>-steps<steps>.png (neither machine can
+write the JAX package's mp4). The batched path visualises nothing, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--episodes", dest="episodes_to_run", default=None,
                    help="comma-separated episode indices")
     p.add_argument("-v", "--visualize", action="store_true",
-                   help="not ported yet (raises)")
+                   help="visualise every episode (default: every 100th)")
     p.add_argument("--fake-env", action="store_true",
                    help="run against the built-in fake environment")
     p.add_argument("--mesh-env", action="store_true",
@@ -95,10 +98,6 @@ def main(argv: Optional[List[str]] = None, device=None):
     of the run's results folder (None when it is empty)."""
     args = parser().parse_args(argv)
     device = resolve_device(device)
-    if args.visualize:
-        raise NotImplementedError(
-            "-v: the episode visualisation is not ported to video_dqn_tpu_torch "
-            "yet (ROADMAP.md, queue 1, item 8)")
 
     config = load_file(args.config)
 
@@ -173,6 +172,7 @@ def main(argv: Optional[List[str]] = None, device=None):
             print("--batched needs SCORE: model and a generated-episode "
                   "mode (--fake-env/--mesh-env/--workload); running sequentially")
         run_policy(config, episodes=episodes, debug=args.debug,
+                   visualize_every=1 if args.visualize else 100,
                    resume=args.resume, start=args.start, device=device, **kwargs)
     if prof is not None:
         prof.stop()

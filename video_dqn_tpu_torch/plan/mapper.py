@@ -31,6 +31,7 @@ from ..ops.binning import observations_to_map_delta
 from ..ops.fmm import fmm_distance
 from ..ops.geometry import get_camera_matrix
 from ..ops.morphology import binary_dilation_disk1_np, open_n_np
+from .visualize import log_frame
 
 ACT_FORWARD, ACT_LEFT, ACT_RIGHT, ACT_STOP = 0, 1, 2, 3
 
@@ -71,10 +72,7 @@ class DepthMapperAndPlanner:
         fix_thrashing: bool = False,
         device=None,
     ):
-        if log_visualization:
-            raise NotImplementedError(
-                "log_visualization: the episode visualisation is not ported to "
-                "video_dqn_tpu_torch yet (ROADMAP.md, queue 1, item 8)")
+        self.log_visualization = log_visualization
         self.device = resolve_device(device)
         self.dt = dt
         self.camera_height = camera_height
@@ -129,6 +127,11 @@ class DepthMapperAndPlanner:
             [self.pos_to_loc(e) for e in pts] for pts in global_goals
         ]
         self._fmm_cache = None
+        # the episode's last frame when log_visualization is on
+        # (plan/visualize.py); JAX's captioned stop strip waits for item 8b
+        self.last_frame = None
+        self.current_pan = None
+        self.current_open = None
 
     # -- coordinate transforms -------------------------------------------
     def pos_to_loc(self, pos) -> np.ndarray:
@@ -456,3 +459,5 @@ class DepthMapperAndPlanner:
                 raise RuntimeError("committed-action mismatch")
         self.last_act = action
         self.acts.append(action)
+        if self.log_visualization:
+            log_frame(self, obs, action)

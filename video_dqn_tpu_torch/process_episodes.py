@@ -3,11 +3,12 @@ dataset/process_episodes_real.py:15-53): filters and detections under
 --location -> <location>/data.feather.
 
     python -m video_dqn_tpu_torch.process_episodes --location <dataset> \\
-        [--inverse-ckpt <models dir> | --inverse-model <.torch>] [--image-size 224]
+        [--inverse-flax <models dir> | --inverse-model <.torch>] [--image-size 224]
 
 The inverse-action labels come from `sample<N>.ckpt` files of either
-package's inverse trainer (--inverse-ckpt, the latest one; the JAX CLI's
---inverse-flax) or from the reference's `.torch` state dict
+package's inverse trainer (--inverse-flax, the JAX CLI's name, or its
+alias --inverse-ckpt; the latest one is read) or from the reference's
+`.torch` state dict
 (--inverse-model); without either the feather has no inverse_actions
 column. The labeler runs on the card in bf16 (the JAX CLI's model dtype);
 on the CPU, which only a caller's device="cpu" selects, in float32.
@@ -36,7 +37,7 @@ def main(argv: Optional[List[str]] = None, device=None) -> str:
     parser.add_argument("--location", default="dataset")
     parser.add_argument("--inverse-model", default="",
                         help="the reference's inverse_model.torch state dict")
-    parser.add_argument("--inverse-ckpt", default="",
+    parser.add_argument("--inverse-flax", "--inverse-ckpt", dest="inverse_ckpt", default="",
                         help="models dir of an inverse model trained by either package "
                              "(sample<N>.ckpt files; the latest is read)")
     parser.add_argument("--image-size", type=int, default=224,

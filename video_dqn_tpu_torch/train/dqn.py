@@ -318,7 +318,7 @@ def batcher_from_config(config) -> QLearningBatcher:
 
 
 def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[int] = None,
-              log_every: int = 100, device=None):
+              log_every: int = 100, device=None, visualize_hook: Optional[Callable] = None):
     """The training loop. `config` is an ExperimentConfig (.models_dir,
     .writer and the config keys). Without a `batcher` it reads the config's
     DATASET feather and its JPEG frames (`batcher_from_config`); a batcher
@@ -327,7 +327,10 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
     for TPU.DEVICE_DATASET, `tables(memory_limit_bytes)`, the numpy tables
     of data/device_dataset.py (e.g. data/tables.py `TableSource`). Returns
     (state, last logged EMA loss). The loop beats the stall watchdog
-    (`stall_watchdog`) every step."""
+    (`stall_watchdog`) every step. A `visualize_hook(model, state,
+    sample_number)` runs after each checkpoint is written (the training
+    CLI passes one when VISUALIZATION_DATA_ROOT is set, as in the JAX
+    package)."""
     device = resolve_device(device)
     _refuse_unported(config)
     if batcher is None:
@@ -386,6 +389,10 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
                 t0 = time.time()
             if sample_number % int(config.CHECKPOINT_INTERVAL) == 0:
                 save_checkpoint(config.models_dir, sample_number, flax_state_dict(state))
+                if visualize_hook is not None:
+                    visualize_hook(state.model, state, sample_number)
+                    if watchdog is not None:
+                        watchdog.beat()
     finally:
         if watchdog is not None:
             watchdog.stop()

@@ -8,19 +8,28 @@ names are read by the port's own reader and decoder, and training runs on
 the card. -r resumes from the latest `sample<N>.ckpt` of `<folder>/models`,
 -d deletes the folder's run logs first, and -g is accepted and ignored as
 in the JAX CLI. The JAX CLI's multi-host flags are not ported yet
-(ROADMAP.md, queue 1 item 10), nor is the value-map hook that
-VISUALIZATION_DATA_ROOT turns on (queue 1 item 8): such a config raises.
+(ROADMAP.md, queue 1 item 10).
+
+With VISUALIZATION_DATA_ROOT set to a folder of grid folders (written by
+viz/render_grid.py), each checkpoint is followed by one value map a grid
+and class, the max over the four orientations, written as
+`<run dir>/value_map_<grid>_<class>_<step>.png`. The online net scores
+the grids in eval mode at TPU.IMAGE_SIZE (the JAX CLI scores at 224, which
+only a net trained at 224 takes) and goes back to train mode after.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional
+import os
+from typing import Callable, List, Optional
 
 from ._device import resolve_device
 from .core.checkpoint import latest_checkpoint_step
 from .core.experiment import ExperimentConfig
+from .sim.gibson import CLASS_LABELS
 from .train.dqn import run_train
+from .viz.value_map import build_value_maps, render_value_map
 
 
 def main(argv: Optional[List[str]] = None, device=None):
@@ -41,10 +50,6 @@ def main(argv: Optional[List[str]] = None, device=None):
     device = resolve_device(device)
 
     config = ExperimentConfig(args.config, remove=args.delete, resume=args.resume)
-    if config.VISUALIZATION_DATA_ROOT:
-        raise NotImplementedError(
-            "VISUALIZATION_DATA_ROOT (value maps at checkpoints) is not ported to "
-            "video_dqn_tpu_torch yet (ROADMAP.md, queue 1 item 8); unset it")
     config.write_config_log()
 
     resume_from = -1
@@ -53,7 +58,34 @@ def main(argv: Optional[List[str]] = None, device=None):
         if latest is not None:
             print(f"Resuming from: {latest}")
             resume_from = latest
-    return run_train(config, resume_from, log_every=args.log_every, device=device)
+    hook = value_map_hook(config, device) if config.VISUALIZATION_DATA_ROOT else None
+    return run_train(config, resume_from, log_every=args.log_every, device=device,
+                     visualize_hook=hook)
+
+
+def value_map_hook(config, device) -> Callable:
+    """The checkpoint hook of VISUALIZATION_DATA_ROOT: for every grid
+    folder under it, value maps of the live online net (eval mode, no
+    gradient; train mode restored after), and one add_image a class of
+    the max-over-orientations map."""
+    root = config.VISUALIZATION_DATA_ROOT
+    grids = [d for d in sorted(os.listdir(root)) if os.path.isdir(os.path.join(root, d))]
+    panorama = bool(config.PANORAMA or config.PREVIOUS_IMAGES)
+    image_size = int(config.TPU.IMAGE_SIZE)
+
+    def visualize_hook(model, state, sample_number: int) -> None:
+        try:
+            for name in grids:
+                maps, agg, free = build_value_maps(model, os.path.join(root, name), panorama,
+                                                   image_size=image_size, device=device)
+                for i, label in enumerate(CLASS_LABELS):
+                    config.writer.add_image(f"value_map_{name}/{label}",
+                                            render_value_map(agg[:, :, i], free), sample_number)
+                del maps, agg, free  # ~0.5 GB at resolution 1500: one grid's maps at a time
+        finally:
+            model.set_train(True)
+
+    return visualize_hook
 
 
 if __name__ == "__main__":

@@ -1,0 +1,18 @@
+"""Visualisation without text (counterpart of video_dqn_tpu/viz): value
+maps over pre-rendered grids, the grid renderer, panorama strips and the
+value/distance analysis. Images are uint8 numpy arrays, written by
+data/png.py; the captions are ROADMAP.md queue 1 item 8b."""
+
+from .panorama import join_images, panorama_strip
+from .render_grid import render_grid
+from .value_map import VisualizationGrid, build_map_figures, build_value_maps, render_value_map
+
+__all__ = [
+    "VisualizationGrid",
+    "build_value_maps",
+    "render_value_map",
+    "build_map_figures",
+    "join_images",
+    "panorama_strip",
+    "render_grid",
+]
