@@ -180,10 +180,26 @@ prints no result line):
      steps' launches counted before the hook, 5 PNGs at the checkpoint,
      the online net's parameters, buffers and Adam's state bit-unchanged
      across the hook, train mode restored, the hook's seconds;
-  14. a JSON line of every ported kernel, then the result line.
-Phase 1 also prints what frame extraction could decode with: the libav*
-and NVDEC libraries `ldconfig -p` lists and whether libnvcuvid.so.1
-loads (ROADMAP.md queue 1 item 9).
+  14. frame extraction (tests/torch_video_fixture.py: small.mp4 160x120,
+     its fragmented copy, hd720.mp4 1280x720, coding-tool clips): (a) the
+     host library's demuxer and H.264 decoder give every frame's pts and
+     the kept frames of libavcodec and the JAX package, each kept frame's
+     NV12 planes bit-equal to libavcodec's, the plain and fragmented files
+     the same frames, every frame of the coding-tool clips bit-equal, and
+     CAVLC, interlaced and lossless clips refused; (b) the NV12 -> RGB
+     kernel (csrc/nv12_rgb.cu) bit-equal to its twin on every kept frame,
+     small.mp4's RGB equal to the JAX package's frames, and its device time
+     at 1280x720 and 1920x1080 against its bound; (c) the -d CLI
+     (video_dqn_tpu_torch.extract_frames) over small.mp4 and hd720.mp4, one
+     kernel launch a kept frame, every JPEG equal to the JAX package's file
+     byte for byte, a second run writing nothing, then the filter pass over
+     the dumped frames; (d) hd720.mp4 at fps 0.5 and 0: frames decoded/s,
+     written/s and the host split (demux, decode, conversion with its
+     copies, JPEG write);
+  15. a JSON line of every ported kernel, then the result line.
+Phase 1 also prints the libav* and NVDEC libraries `ldconfig -p` lists and
+whether libnvcuvid.so.1 loads (it does, but the card's NVDEC engines are
+not exposed there, which is why the port decodes on the host).
 """
 
 from __future__ import annotations
@@ -226,6 +242,9 @@ from video_dqn_tpu_torch.data.feather import read_feather
 from video_dqn_tpu_torch.data.filters import (PERSON_CLASS, make_indoor_classifier,
                                               person_in_top5)
 from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
+from video_dqn_tpu_torch.data import video as video_mod
+from video_dqn_tpu_torch.data.h264 import decoded_frames
+from video_dqn_tpu_torch.data.mp4 import Mp4Video
 from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images, save_images
 from video_dqn_tpu_torch.data.png import read_png, save_png
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
@@ -246,6 +265,7 @@ from video_dqn_tpu_torch.models.detector.inference import TorchDetector, load_de
 from video_dqn_tpu_torch.models.detector.maskrcnn import BOX_WEIGHTS, STRIDES, MaskRCNN
 from video_dqn_tpu_torch.models.detector.roi_align import multilevel_roi_align
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
+from video_dqn_tpu_torch.ops import nv12 as nv12_mod
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
 from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
@@ -272,6 +292,7 @@ from torch_detector_util import (  # noqa: E402  (phase 3's box layouts, phase 1
 from torch_frontend_util import (  # noqa: E402  (phase 12's AlexNet weights and its
     BF16_LOGIT_ATOL, FRONT_SEED, INDOOR_BF16_ATOL, JAX_BF16_MAX_MOVE,  # bf16 rule)
     JAX_BF16_SWAP_SHARE, bf16_against_f32, centred_alexnet_state_dict, front_batch)
+import torch_video_fixture as vfix  # noqa: E402  (phase 14's videos and their oracle)
 
 SEED = 4
 IMAGE_SIZE = 224
@@ -394,24 +415,46 @@ def environment() -> None:
 
 
 def video_decode_probe() -> None:
-    """What frame extraction could decode with on this machine (ROADMAP.md
-    queue 1 item 9, step 1): the libav* and NVDEC libraries the loader
-    knows, and whether NVDEC's libnvcuvid.so.1 loads. Prints; never
+    """What frame extraction could decode with on this machine: the libav*
+    and NVDEC libraries the loader knows, whether NVDEC's libnvcuvid.so.1
+    loads, whether its engines take H.264 (cuvidGetDecoderCaps: the status,
+    bIsSupported and nNumNVDECs of Video Codec SDK 12's CUVIDDECODECAPS),
+    and what nvidia-smi -q says of the encoder and decoder. Prints; never
     fails."""
     try:
         listed = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
                                 timeout=60).stdout
         found = sorted({line.split()[0] for line in listed.splitlines()
-                        if re.search(r"avcodec|avformat|swscale|nvcuvid", line)})
+                        if re.search(r"avcodec|avformat|swscale|nvcuvid|nvidia-encode", line)})
     except (OSError, subprocess.SubprocessError) as e:
         found = [f"ldconfig failed: {e}"]
     try:
-        ctypes.CDLL("libnvcuvid.so.1")
-        nvcuvid = "loads"
-    except OSError as e:
+        cuvid = ctypes.CDLL("libnvcuvid.so.1")
+        torch.zeros(1, device="cuda")  # the primary context, current on this thread
+        cuda = ctypes.CDLL("libcuda.so.1")
+        ctx = ctypes.c_void_p()
+        cuda.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), 0)
+        cuda.cuCtxPushCurrent_v2(ctx)
+        caps = (ctypes.c_ubyte * 128)()
+        caps[0] = 4   # eCodecType cudaVideoCodec_H264
+        caps[4] = 1   # eChromaFormat 4:2:0; nBitDepthMinus8 0
+        status = cuvid.cuvidGetDecoderCaps(caps)
+        cuda.cuCtxPopCurrent_v2(ctypes.byref(ctx))
+        cuda.cuDevicePrimaryCtxRelease_v2(0)
+        nvcuvid = (f"loads; cuvidGetDecoderCaps(H.264 4:2:0 8-bit) status {status}, "
+                   f"bIsSupported {caps[24]}, nNumNVDECs {caps[25]}")
+    except (OSError, AttributeError) as e:
         nvcuvid = f"does not load ({e})"
-    log(f"[probe] ldconfig -p lists for avcodec|avformat|swscale|nvcuvid: "
-        f"{found or 'nothing'}; libnvcuvid.so.1 {nvcuvid}")
+    try:
+        smi = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True,
+                             timeout=60).stdout
+        coder = "; ".join(" ".join(line.split()) for line in smi.splitlines()
+                          if re.search(r"^\s*(Encoder|Decoder|Active Sessions)\s*:", line))
+    except (OSError, subprocess.SubprocessError) as e:
+        coder = f"nvidia-smi -q failed: {e}"
+    log(f"[probe] ldconfig -p lists for avcodec|avformat|swscale|nvcuvid|nvidia-encode: "
+        f"{found or 'nothing'}; libnvcuvid.so.1 {nvcuvid}; nvidia-smi -q: {coder}; "
+        f"NVIDIA_DRIVER_CAPABILITIES={os.environ.get('NVIDIA_DRIVER_CAPABILITIES')}")
 
 
 def build() -> None:
@@ -470,6 +513,24 @@ def kernel_device_ms(fn, calls: int = 20, kernels=("resize_normalize",), split=N
                 split.update({k: sum(us for _, us in v) / calls / 1e3 for k, v in seen.items()})
             return sum(us for v in seen.values() for _, us in v) / calls / 1e3
     return None
+
+
+def queued_ms(fn, iters: int = 50) -> float:
+    """Device time per call of fn from CUDA events around `iters` calls
+    queued behind a sleep kernel, so that the card runs them back to back
+    however long the host takes to issue them (for kernels shorter than
+    their wrapper's host cost, where cuda_ms measures the host)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of cycles: longer than issuing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -532,7 +593,7 @@ def kernel_vs_plain() -> list[dict]:
             bound_ms = max(bytes_ms, ops_ms)
             row = {"path": path, "shape": list(shape), "out": out, "dtype": dname,
                    "max_abs_err": max_err, "tolerance": tol, "ms": ms,
-                   "ms_source": "profiler" if device_ms is not None else "events",
+                   "ms_source": "profiler" if device_ms is not None else "queued events",
                    "event_ms": event_ms, "cold_l2_device_ms": cold_ms,
                    "host_us_per_call": wrapper_us, "plain_ms": plain_ms,
                    "bound_ms": bound_ms,
@@ -1627,8 +1688,9 @@ def inverse_path() -> dict:
         f"({decoding['pairs_per_s']:.1f} pairs/s), cached {cached['ms_per_step']:.4f} ms/step "
         f"({cached['pairs_per_s']:.1f} pairs/s)")
     return {"tmp": tmp, "models_dir": cached["models_dir"],
-            "launches": {"identity": decoding["launches"].get(("identity", "bfloat16"), 0)
-                         + cached["launches"].get(("identity", "bfloat16"), 0), "banded": 0},
+            "launches": {path: decoding["launches"].get((path, "bfloat16"), 0)
+                         + cached["launches"].get((path, "bfloat16"), 0)
+                         for path in ("identity", "banded")},
             "modes": {name: {k: v for k, v in run.items()
                              if k not in ("state", "models_dir", "launches")}
                       for name, run in (("decoding", decoding), ("cached", cached))},
@@ -1704,6 +1766,7 @@ def label_path(phase7: dict) -> dict:
                                  phase7["models_dir"], "--image-size", str(IMAGE_SIZE)])
     episodes_s = time.perf_counter() - t1
     episode_launches = rn.LAUNCHES[("identity", "bfloat16")]
+    episode_banded = rn.LAUNCHES[("banded", "bfloat16")]
     cols = read_feather(out)
     if list(cols) != list(cpu_cols) + ["inverse_actions"] or any(
             cols[k].dtype != v.dtype or not np.array_equal(cols[k], v) for k, v in cpu_cols.items()):
@@ -1718,7 +1781,8 @@ def label_path(phase7: dict) -> dict:
         f"the CPU's but inverse_actions; read back by QLearningBatcher (reward ratio "
         f"{batcher.reward_percentage():.4f})")
     shutil.rmtree(phase7["tmp"], ignore_errors=True)
-    return {"launches": {"identity": launches + episode_launches, "banded": 0},
+    # the labeler's run launched identity alone (checked above)
+    return {"launches": {"identity": launches + episode_launches, "banded": episode_banded},
             "rows_per_s": len(before) / wall, "decode_s": timing["decode_s"],
             "device_s": timing["device_s"], "wall_s": wall,
             "bf16_rows_below_margin": int((margins(f32) < LABEL_BF16_MARGIN).sum()),
@@ -2100,7 +2164,7 @@ def scored_cli_run(tmp: Path, ckpt: Path, tag: str, episodes: int, in_flight: in
         f"{prof_wall:.2f} s, device {device_s:.3f} s, busy share {busy:.4f}, idle share "
         f"{1 - busy:.4f}" if device_s else
         f"[{tag}] device idle share not measured (the profiler saw no device events)")
-    return {"launches": {"identity": launches[("identity", "bfloat16")], "banded": 0},
+    return {"launches": {path: launches.get((path, "bfloat16"), 0) for path in ("identity", "banded")},
             "episodes": episodes, "in_flight": in_flight,
             "pipeline_depth": EVAL_PIPELINE, "wall_s": wall,
             "episodes_per_s": episodes / wall, "mean_spl": mean,
@@ -2534,7 +2598,8 @@ def noise_checks(pth: Path, detector: TorchDetector) -> dict:
 
 
 def detector_counts() -> dict:
-    return {"identity": rn.LAUNCHES["identity", "bfloat16"], "nms": det_boxes.LAUNCHES["nms"]}
+    return {"identity": rn.LAUNCHES["identity", "bfloat16"],
+            "banded": rn.LAUNCHES["banded", "bfloat16"], "nms": det_boxes.LAUNCHES["nms"]}
 
 
 def clear_counts() -> None:
@@ -2573,7 +2638,7 @@ def detector_calls(pth: Path, images: np.ndarray) -> dict:
     clear_counts()
     got = detector(views) + detector(frames)
     launches = detector_counts()
-    if launches != {"identity": 2, "nms": 4}:
+    if launches != {"identity": 2, "banded": 0, "nms": 4}:
         raise AssertionError(f"2 detector calls launched {launches}, not one bf16 identity "
                              f"kernel and two NMS kernels each")
 
@@ -2683,7 +2748,7 @@ def detection_cli_chain(tmp: Path, pth: Path) -> dict:
     n_files = len(list((Path(location) / "frames").rglob("*.jpg")))
     calls = sum(-(-len(list((Path(location) / "frames" / v).glob("*.jpg"))) // 4) for v in dets)
     hits = sum(s is not None for v in dets.values() for a in v.values() for s in a[:, 1])
-    if n_frames != n_files or hits == 0 or launches != {"identity": calls, "nms": 2 * calls}:
+    if n_frames != n_files or hits == 0 or launches != {"identity": calls, "banded": 0, "nms": 2 * calls}:
         raise AssertionError(f"detection CLI: {n_frames} frames of {n_files} files, {hits} "
                              f"class hits, launches {launches} for {calls} calls")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2743,7 +2808,7 @@ def fused_eval_run(tmp: Path, pth: Path) -> dict:
         raise AssertionError(f"Detector calls {getattr(detector, 'calls', None)}, stops {stops}")
     if bumps == 0:
         raise AssertionError(f"{stops} fused stops and no score bumped")
-    if launches != {"identity": calls + stops, "nms": 2 * stops}:
+    if launches != {"identity": calls + stops, "banded": 0, "nms": 2 * stops}:
         raise AssertionError(f"{calls} score calls and {stops} detector calls launched "
                              f"{launches}")
     table = clock.stop_table()
@@ -2775,7 +2840,7 @@ def detector_path() -> dict:
         out = {"calls": detector_calls(pth, detector_images()),
                "cli": detection_cli_chain(tmp, pth), "fused_eval": fused_eval_run(tmp, pth)}
     out["launches"] = {k: sum(out[p]["launches"][k] for p in ("calls", "cli", "fused_eval"))
-                       for k in ("identity", "nms")}
+                       for k in ("identity", "banded", "nms")}
     out["seconds"] = time.perf_counter() - t0
     log(f"[detector] phase 11 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
@@ -3078,12 +3143,12 @@ def filter_cli(tmp: Path, places: Path, detector_pth: Path, probs: np.ndarray,
     bf16, _ = run("filter_bf16")
     launches = detector_counts()
     calls = sum(-(-n // FILTER_BATCH) for n in FILTER_VIDEOS)
-    if launches != {"identity": 2 * calls, "nms": 2 * calls}:
+    if launches != {"identity": 2 * calls, "banded": 0, "nms": 2 * calls}:
         raise AssertionError(f"filter CLI: launches {launches}, not {2 * calls} identity (the "
                              f"AlexNet's and the detector's) and {2 * calls} NMS")
     clear_counts()
     again, _ = run("filter_bf16")
-    if again or detector_counts() != {"identity": 0, "nms": 0}:
+    if again or detector_counts() != {"identity": 0, "banded": 0, "nms": 0}:
         raise AssertionError(f"filter CLI resume: wrote {sorted(again)}, launches "
                              f"{detector_counts()}")
     with no_tf32():
@@ -3148,7 +3213,7 @@ def filter_rate(tmp: Path, places: Path, detector_pth: Path) -> dict:
     written, spy = run_filter_cli(root, tmp / "rate_out", places, detector_pth)
     launches = detector_counts()
     calls = RATE_VIDEOS * -(-RATE_FRAMES // FILTER_BATCH)
-    if len(written) != RATE_VIDEOS or launches != {"identity": 2 * calls, "nms": 2 * calls}:
+    if len(written) != RATE_VIDEOS or launches != {"identity": 2 * calls, "banded": 0, "nms": 2 * calls}:
         raise AssertionError(f"filter CLI rate run: {len(written)} videos, launches {launches}, "
                              f"not {2 * calls} identity and {2 * calls} NMS")
     frames = RATE_VIDEOS * RATE_FRAMES
@@ -3296,8 +3361,11 @@ def frontend_path() -> dict:
         sim = sim_loop(tmp)
     runs = (cli, rate)
     out = {"calls": calls, "cli": cli, "rate": rate, "sim": sim,
+           # the classifier's calls and the simulator's trainers launched
+           # identity alone (checked where they run)
            "launches": {"identity": calls["launches"] + sim["launches"]
                         + sum(r["launches"]["identity"] for r in runs),
+                        "banded": sum(r["launches"]["banded"] for r in runs),
                         "nms": sum(r["launches"]["nms"] for r in runs)}}
     out["seconds"] = time.perf_counter() - t0
     log(f"[frontend] phase 12 in {out['seconds']:.1f} s; launches {out['launches']}")
@@ -3429,8 +3497,8 @@ def value_map_check(tmp: Path, ckpt: Path) -> dict:
             "maps_s": maps_s, "cells_per_s": cells / maps_s, "bf16_vs_f32": worst,
             "f32_vs_cpu": cpu_err, "panorama_s": pano_s, "panorama_bf16_vs_f32": pano_err,
             "png_ms": ms, "png_shapes": shapes,
-            "launches": {"identity": launches[("identity", "bfloat16")]
-                         + pano_launches[("identity", "bfloat16")], "banded": 0}}
+            "launches": {path: launches.get((path, "bfloat16"), 0)
+                         + pano_launches.get((path, "bfloat16"), 0) for path in ("identity", "banded")}}
 
 
 def allclass_check(ckpt: Path) -> dict:
@@ -3676,23 +3744,263 @@ def viz_path() -> dict:
     log(f"[viz] phase 13 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
+# -- phase 14: frame extraction ----------------------------------------------------
+
+# the NV12 -> RGB kernel's timed shapes: the fixture's 720p and YouTube's 1080p
+NV12_SHAPES = ((720, 1280), (1080, 1920))
+# bytes the kernel moves a pixel: 1.5 in (NV12), 3 out (RGB)
+NV12_BYTES_PER_PIXEL = 4.5
+
+
+def decode_check(name: str, exp: dict) -> dict:
+    """Decode `name` through the port's decoder, sampling at 0.5 fps as the
+    CLI does: every frame's pts equal to libavcodec's, the kept indices
+    JAX's, each kept frame's NV12 planes libavcodec's bit for bit. Returns
+    the kept planes on the card and the seconds it took."""
+    t0 = time.perf_counter()
+    sampler = video_mod.FrameSampler(0.5)
+    times, keep, planes = [], [], []
+    with Mp4Video(vfix.path(name)) as video:
+        for i, (t, frame) in enumerate(decoded_frames(video)):
+            times.append(t)
+            if sampler.keep(t):
+                keep.append(i)
+                y, uv = frame.nv12()
+                planes.append((torch.from_numpy(y).cuda(), torch.from_numpy(uv).cuda()))
+    seconds = time.perf_counter() - t0
+    hashes = [vfix.nv12_sha256(y.cpu().numpy(), uv.cpu().numpy()) for y, uv in planes]
+    want_times = vfix.display_seconds(exp, name)
+    if not np.array_equal(np.asarray(times), want_times):
+        raise AssertionError(f"{name}: {len(times)} frame times, not libavcodec's {len(want_times)}")
+    if keep != exp[f"{name}_keep"].tolist():
+        raise AssertionError(f"{name}: kept frames {keep}, JAX keeps {exp[f'{name}_keep'].tolist()}")
+    if hashes != exp[f"{name}_nv12_sha256"].tolist():
+        bad = [k for k, (a, b) in enumerate(zip(hashes, exp[f"{name}_nv12_sha256"])) if a != b]
+        raise AssertionError(f"{name}: kept frames {bad} differ from libavcodec's planes")
+    log(f"[video] {name}: {len(times)} frames decoded in {seconds:.3f} s "
+        f"({len(times) / seconds:.1f} frames/s, host decoder), pts and kept frames {keep} equal "
+        f"libavcodec's and JAX's, {len(planes)} kept NV12 frames bit-equal to libavcodec's")
+    return {"frames": len(times), "kept": keep, "seconds": seconds, "planes": planes,
+            "hashes": hashes}
+
+
+def feature_checks(exp: dict) -> dict:
+    """Every frame of each coding-tool clip bit-equal to libavcodec's; the
+    refused streams raise NotImplementedError."""
+    for name in vfix.FEATURES:
+        with Mp4Video(vfix.feature_path(name)) as video:
+            got = [vfix.nv12_sha256(*f.nv12()) for _, f in decoded_frames(video)]
+        if got != exp[f"feature_{name}_nv12_sha256"].tolist():
+            raise AssertionError(f"coding-tool clip {name}: frames differ from libavcodec's")
+    refused = {}
+    for name, spec in vfix.REFUSED.items():
+        with Mp4Video(vfix.feature_path(name)) as video:
+            try:
+                for _ in decoded_frames(video):
+                    pass
+            except NotImplementedError as e:
+                if spec[-1] not in str(e):
+                    raise
+                refused[name] = str(e).split(": ", 1)[-1]
+            else:
+                raise AssertionError(f"the decoder took the {name} clip")
+    log(f"[video] coding-tool clips {list(vfix.FEATURES)}: every frame bit-equal to "
+        f"libavcodec's; refused as expected: {refused}")
+    return {"clips": len(vfix.FEATURES), "refused": refused}
+
+
+def nv12_inputs(h: int, w: int, seed: int):
+    """Seeded NV12 planes on the card, tight as the decoder hands them over."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randint(0, 256, (h, w), dtype=torch.uint8, device="cuda", generator=g)
+    uv = torch.randint(0, 256, (h // 2, w), dtype=torch.uint8, device="cuda", generator=g)
+    return y, uv
+
+
+def nv12_kernel_rows(kept: list, exp: dict) -> list:
+    """The kernel against its plain twin on every kept frame (exact: integer
+    arithmetic) and small.mp4's RGB against JAX's frames (exact); timed at
+    NV12_SHAPES against its bound."""
+    max_err = 0
+    for name, planes in kept:
+        for k, (y, uv) in enumerate(planes):
+            got, want = nv12_mod.nv12_to_rgb(y, uv), nv12_mod.nv12_to_rgb_reference(y, uv)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max().item())
+            max_err = max(max_err, err)
+            if err:
+                raise AssertionError(f"nv12_rgb on {name} frame {k}: max |kernel - twin| {err}")
+            if name == "small" and not np.array_equal(got.cpu().numpy(), exp["small_rgb"][k]):
+                raise AssertionError(f"nv12_rgb on small.mp4 frame {k}: not JAX's RGB")
+    rows = []
+    for h, w in NV12_SHAPES:
+        y, uv = nv12_inputs(h, w, SEED)
+        got, want = nv12_mod.nv12_to_rgb(y, uv), nv12_mod.nv12_to_rgb_reference(y, uv)
+        if not torch.equal(got, want):
+            raise AssertionError(f"nv12_rgb {w}x{h}: kernel differs from its twin")
+        call = lambda: nv12_mod.nv12_to_rgb(y, uv)  # noqa: E731
+        event_ms = queued_ms(call)
+        device_ms = kernel_device_ms(call, kernels=("nv12_rgb",))
+        ms = device_ms if device_ms is not None else event_ms
+        plain_ms = queued_ms(lambda: nv12_mod.nv12_to_rgb_reference(y, uv))
+        n_bytes = int(NV12_BYTES_PER_PIXEL * w * h)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": [h, w], "max_abs_err": 0, "ms": ms,
+               "ms_source": "profiler" if device_ms is not None else "queued events",
+               "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "share_of_bound": bound_ms / ms, "bytes": n_bytes,
+               "gb_per_s": n_bytes / ms / 1e6, "library_ms": None}
+        log(f"[kernel] nv12_rgb {w}x{h}: bit-equal to its twin; device "
+            f"{ms:.4f} ms ({row['ms_source']}), queued events {event_ms:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms (bytes), {row['share_of_bound']:.1%} of it, "
+            f"{row['gb_per_s']:.1f} GB/s")
+        rows.append(row)
+    log(f"[kernel] nv12_rgb on {sum(len(p) for _, p in kept)} kept fixture frames: bit-equal "
+        f"to its twin; small.mp4's RGB equal to the JAX package's frames")
+    return rows
+
+
+def dump_cli(tmp: Path, exp: dict) -> dict:
+    """The -d CLI on small.mp4 and hd720.mp4 (the main path, launches
+    counted from 0): JPEGs equal to the JAX package's files, a second run
+    writing nothing, then the filter pass over the dumped frames."""
+    videos, frames, filters = tmp / "videos", tmp / "frames", tmp / "filters"
+    videos.mkdir()
+    for name in vfix.DUMP_VIDEOS:
+        (videos / f"{name}.mp4").symlink_to(vfix.path(name))
+    nv12_mod.LAUNCHES.clear()
+    clear_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        done = extract_frames.main(["-d", "--location", str(videos), "--frames", str(frames)])
+    seconds = time.perf_counter() - t0
+    launches = nv12_mod.LAUNCHES["nv12_rgb"]
+    counts = {**detector_counts(), "nv12_rgb": launches}
+    kept = sum(len(exp[f"{n}_keep"]) for n in vfix.DUMP_VIDEOS)
+    if done != sorted(vfix.DUMP_VIDEOS) or f"extracted {len(done)} videos" not in out.getvalue():
+        raise AssertionError(f"--dump extracted {done}: {out.getvalue()!r}")
+    if launches != kept:
+        raise AssertionError(f"--dump launched nv12_rgb {launches} times for {kept} kept frames")
+    for name in vfix.DUMP_VIDEOS:
+        files = sorted((frames / name).iterdir())
+        got = [vfix.file_sha256(f) for f in files]
+        if got != exp[f"{name}_jpeg_sha256"].tolist():
+            raise AssertionError(f"--dump {name}: JPEG files differ from the JAX package's")
+    stamps = {p: p.stat().st_mtime_ns for p in frames.rglob("*.jpg")}
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = extract_frames.main(["-d", "--location", str(videos), "--frames", str(frames)])
+    if again != [] or {p: p.stat().st_mtime_ns for p in frames.rglob("*.jpg")} != stamps:
+        raise AssertionError(f"a second --dump run extracted {again}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = extract_frames.main(["--frames", str(frames), "--out", str(filters),
+                                       "--stub-detector", "--allow-passthrough"])
+    if sorted(written) != sorted(vfix.DUMP_VIDEOS) or not all(Path(p).exists() for p in written.values()):
+        raise AssertionError(f"the filter pass over the dumped frames wrote {written}")
+    log(f"[video] extract_frames -d over {list(vfix.DUMP_VIDEOS)}: {kept} JPEG files equal to the "
+        f"JAX package's, byte for byte, in {seconds:.3f} s; launches {counts}; "
+        f"a second run wrote nothing; the filter pass (stub detector, passthrough) read them")
+    return {"seconds": seconds, "launches": counts, "jpegs": kept}
+
+
+def extraction_rate(tmp: Path, fps: float, device: str = "cuda") -> dict:
+    """hd720.mp4 through extract_frames at `fps` (0: every frame), the kept
+    frames converted on `device` (the CPU: the plain twin on the host):
+    decoded and written frames/s, the host split (demux, decode,
+    conversion with its copies, JPEG write) and the conversion's ms a kept
+    frame."""
+    timings = {}
+    dest = tmp / f"rate_{fps}_{device}"
+    t0 = time.perf_counter()
+    written = video_mod.extract_frames(str(vfix.path("hd720")), str(dest), fps=fps, device=device,
+                                       timings=timings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    frames = len(vfix.expected()["hd720_frame_pts"])
+    split = {k: timings.get(k, 0.0) for k in ("demux", "decode", "convert", "write")}
+    split["other"] = seconds - sum(split.values())
+    convert_ms = split["convert"] / written * 1e3
+    log(f"[video] hd720.mp4 (1280x720, {frames} frames) at fps {fps}, converted on {device}: "
+        f"{seconds:.3f} s, {frames / seconds:.1f} frames decoded/s, {written} written "
+        f"({written / seconds:.2f}/s); conversion with its copies {convert_ms:.4f} ms a kept "
+        f"frame; host split " + ", ".join(f"{k} {v:.3f} s ({v / seconds:.1%})"
+                                          for k, v in split.items()))
+    shutil.rmtree(dest)
+    return {"fps": fps, "device": device, "seconds": seconds, "decoded_per_s": frames / seconds,
+            "written": written, "written_per_s": written / seconds,
+            "convert_ms_per_frame": convert_ms, "split_s": split}
+
+
+def video_path() -> dict:
+    """Phase 14: (a) decoding, (b) the NV12 -> RGB kernel, (c) the -d CLI,
+    (d) rates. launches are the CLI run's, counted from 0."""
+    t0 = time.perf_counter()
+    exp = vfix.expected()
+    decoded = {name: decode_check(name, exp) for name in vfix.VIDEOS}
+    if decoded["small"]["hashes"] != decoded["small_fragmented"]["hashes"]:
+        raise AssertionError("small.mp4 and its fragmented copy decode to other frames")
+    features = feature_checks(exp)
+    kernel_rows = nv12_kernel_rows([(n, d.pop("planes")) for n, d in decoded.items()], exp)
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        cli = dump_cli(tmp, exp)
+        # the card's round trip against the plain twin on the host, on the
+        # same kept frames
+        rates = [extraction_rate(tmp, 0.5), extraction_rate(tmp, 0), extraction_rate(tmp, 0.5, "cpu")]
+    card, host = rates[0]["convert_ms_per_frame"], rates[2]["convert_ms_per_frame"]
+    log(f"[video] the conversion a kept 720p frame: the card's round trip {card:.4f} ms, the plain "
+        f"twin on the host {host:.4f} ms ({host / card:.1f}x)")
+    out = {"decoded": {n: {k: v for k, v in d.items() if k != "hashes"} for n, d in decoded.items()},
+           "features": features, "kernel": kernel_rows, "cli": cli, "rates": rates,
+           "launches": cli["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[video] phase 14 in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+PHASES = ("serve", "train", "real_data", "inverse", "label", "eval", "eval_mesh", "detector",
+          "frontend", "viz", "video")
+
+
+def counted_phase(fn, *args) -> tuple:
+    """Runs one phase with the NMS and NV12 -> RGB counters at 0 and
+    returns its result and those counters over the whole phase: the
+    launches of a phase whose main path runs neither kernel (the phases
+    that run one read its count on their main path themselves)."""
+    det_boxes.LAUNCHES.clear()
+    nv12_mod.LAUNCHES.clear()
+    out = fn(*args)
+    return out, {"nms": det_boxes.LAUNCHES["nms"], "nv12_rgb": nv12_mod.LAUNCHES["nv12_rgb"]}
+
 
 def main() -> None:
     environment()
     build()
     rows = kernel_vs_plain()
     nms_rows = nms_vs_plain()
-    serve = serving_path()
-    train = train_path()
-    real = real_data_path()
-    inv = inverse_path()
-    label = label_path(inv)
-    inv.pop("tmp")
-    ev = eval_path()
-    ev_mesh = mesh_eval_path()
-    det = detector_path()
-    front = frontend_path()
-    viz = viz_path()
+    res, whole = {}, {}
+    res["serve"], whole["serve"] = counted_phase(serving_path)
+    res["train"], whole["train"] = counted_phase(train_path)
+    res["real_data"], whole["real_data"] = counted_phase(real_data_path)
+    res["inverse"], whole["inverse"] = counted_phase(inverse_path)
+    res["label"], whole["label"] = counted_phase(label_path, res["inverse"])
+    res["inverse"].pop("tmp")
+    res["eval"], whole["eval"] = counted_phase(eval_path)
+    res["eval_mesh"], whole["eval_mesh"] = counted_phase(mesh_eval_path)
+    res["detector"], whole["detector"] = counted_phase(detector_path)
+    res["frontend"], whole["frontend"] = counted_phase(frontend_path)
+    res["viz"], whole["viz"] = counted_phase(viz_path)
+    res["video"], whole["video"] = counted_phase(video_path)
+    # each phase's main-path launches: its own count where it reads one
+    # (every phase the resize kernel's; the detector, the front end and
+    # video the NMS's; video the NV12 kernel's), else the whole phase's
+    launches = {p: {**whole[p], **res[p]["launches"]} for p in PHASES}
+
+    def per_phase(key: str) -> dict:
+        got = {f"launches_{p}": launches[p][key] for p in PHASES}
+        return {"launches": sum(got.values()), **got}
+
     kernels = []
     for path in ("identity", "banded"):
         mine = [r for r in rows if r["path"] == path]
@@ -3704,21 +4012,7 @@ def main() -> None:
             "route": "cuda",
             "source": "video_dqn_tpu_torch/csrc/resize_normalize.cu",
             "replaces": "video_dqn_tpu/ops/pallas_image.py:86",
-            "launches": (serve["launches"][path] + train["launches"][path]
-                         + real["launches"][path] + inv["launches"][path]
-                         + label["launches"][path] + ev["launches"][path]
-                         + ev_mesh["launches"][path] + det["launches"].get(path, 0)
-                         + front["launches"].get(path, 0) + viz["launches"][path]),
-            "launches_serve": serve["launches"][path],
-            "launches_train": train["launches"][path],
-            "launches_real_data": real["launches"][path],
-            "launches_inverse": inv["launches"][path],
-            "launches_label": label["launches"][path],
-            "launches_eval": ev["launches"][path],
-            "launches_eval_mesh": ev_mesh["launches"][path],
-            "launches_detector": det["launches"].get(path, 0),
-            "launches_frontend": front["launches"].get(path, 0),
-            "launches_viz": viz["launches"][path],
+            **per_phase(path),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
@@ -3734,12 +4028,7 @@ def main() -> None:
         "route": "cuda",
         "source": "video_dqn_tpu_torch/csrc/nms.cu",
         "replaces": "video_dqn_tpu/models/detector/boxes.py:115",
-        "launches": det["launches"]["nms"] + front["launches"]["nms"],
-        **{f"launches_{p}": 0 for p in ("serve", "train", "real_data", "inverse", "label",
-                                        "eval", "eval_mesh")},
-        "launches_detector": det["launches"]["nms"],
-        "launches_frontend": front["launches"]["nms"],
-        "launches_viz": 0,
+        **per_phase("nms"),
         # each counted launch is one nms_groups call: its mask and scan kernels
         "kernels_per_launch": len(NMS_KERNELS),
         "max_abs_err": 0.0,
@@ -3750,16 +4039,24 @@ def main() -> None:
         "library_ms": None,
         "shapes": nms_rows,
     })
-    log(json.dumps({"serve": serve}))
-    log(json.dumps({"train": train}))
-    log(json.dumps({"real_data": real}))
-    log(json.dumps({"inverse": inv}))
-    log(json.dumps({"label": label}))
-    log(json.dumps({"eval": ev}))
-    log(json.dumps({"eval_mesh": ev_mesh}))
-    log(json.dumps({"detector": det}))
-    log(json.dumps({"frontend": front}))
-    log(json.dumps({"viz": viz}))
+    # the main path's call: a 720p frame of the -d CLI's run
+    main_row = res["video"]["kernel"][0]
+    kernels.append({
+        "name": "nv12_rgb",
+        "route": "cuda",
+        "source": "video_dqn_tpu_torch/csrc/nv12_rgb.cu",
+        "replaces": "native/decode/decode.cc:111 (emit: swscale yuv420p -> RGB24; not a TPU kernel)",
+        **per_phase("nv12_rgb"),
+        "max_abs_err": 0.0,
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "shapes": res["video"]["kernel"],
+    })
+    for p in PHASES:
+        log(json.dumps({p: res[p]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

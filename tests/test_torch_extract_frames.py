@@ -5,7 +5,7 @@ same refusals without weights; --allow-passthrough, alone and with
 through the port's decoder: the stub detector hashes pixels, and the two
 decoders differ within a mean of 3.0); the Places365 weights and a
 seeded Mask R-CNN through the CLI giving what the filter pass gives with
-the same models; resume; and --dump raising."""
+the same models; resume; and --dump raising without CUDA."""
 
 import importlib.util
 import sys
@@ -131,6 +131,9 @@ def test_stub_detector_labels(frames_dir, tmp_path):
     assert_same(read(got), read(want))
 
 
-def test_dump_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        extract_frames.main(["--dump", "--location", str(tmp_path)], device="cpu")
+def test_dump_raises(tmp_path, monkeypatch):
+    # --dump decodes on the host and converts on the card: without CUDA it
+    # raises (it runs with device="cpu": tests/test_torch_video.py)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_frames.main(["--dump", "--location", str(tmp_path)])

@@ -36,6 +36,7 @@ from video_dqn_tpu_torch.models.detector.inference import load_detector
 from video_dqn_tpu_torch.detect_real_videos import main as detect_cli
 from video_dqn_tpu_torch.data.filters import make_indoor_classifier
 from video_dqn_tpu_torch.extract_frames import main as extract_frames_cli
+from video_dqn_tpu_torch.data.video import decode_frames, extract_all_frames
 from video_dqn_tpu_torch.models.alexnet_places import AlexNetPlaces365, load_alexnet_places
 from video_dqn_tpu_torch.viz.panorama import make_allclass_scorer
 from video_dqn_tpu_torch.viz.value_map import build_value_maps
@@ -51,6 +52,10 @@ BLOCKED = ("jax", "flax", "optax", "scipy", "PIL", "cv2", "matplotlib", "imageio
            "tensorboardX")
 FORBIDDEN = re.compile(
     rf"^\s*(import|from)\s+({'|'.join(BLOCKED)})\b|\bvideo_dqn_tpu\.", re.MULTILINE)
+# the card's machine has no libav*: the port's C++ and CUDA sources include
+# none of their headers (frame extraction demuxes and decodes on its own)
+LIBAV_INCLUDE = re.compile(r'^\s*#\s*include\s*[<"](libav\w*|libswscale|libpostproc)/',
+                           re.MULTILINE)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -71,7 +76,7 @@ def test_every_module_imports_with_jax_blocked():
                  "data.sim_dataset", "models.alexnet_places", "extract_frames",
                  "data.png", "core.metrics", "viz", "viz.colormaps", "viz.value_map",
                  "viz.panorama", "viz.render_grid", "plan.visualize", "visualize_value",
-                 "visualize_panorama"):
+                 "visualize_panorama", "data.mp4", "data.h264", "data.video", "ops.nv12"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -88,14 +93,20 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def test_sources_name_no_jax():
-    files = [*PORT.rglob("*.py"), *PORT.rglob("*.cu"), *PORT.rglob("*.cc"),
+    native = [*PORT.rglob("*.cu"), *PORT.rglob("*.cc"), *PORT.rglob("*.h")]
+    files = [*PORT.rglob("*.py"), *native,
              ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py",
-             ROOT / "tests/torch_detector_util.py", ROOT / "tests/torch_frontend_util.py"]
+             ROOT / "tests/torch_detector_util.py", ROOT / "tests/torch_frontend_util.py",
+             ROOT / "tests/torch_video_fixture.py"]
     assert {"jpeg_decode.cc", "jpeg_encode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc",
-            "mesh.cc", "resize_normalize.cu", "nms.cu"} <= {f.name for f in files}
+            "mesh.cc", "resize_normalize.cu", "nms.cu", "nv12_rgb.cu", "mp4_demux.cc",
+            "h264_decode.cc", "h264_tables.h", "mp4.py", "h264.py", "video.py",
+            "nv12.py"} <= {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    bad += [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in native for m in LIBAV_INCLUDE.finditer(f.read_text())]
     assert bad == []
 
 
@@ -107,6 +118,9 @@ def test_forbidden_pattern_spares_the_port_name():
     for name in ("PIL", "cv2", "matplotlib", "imageio", "tensorboardX"):
         assert FORBIDDEN.search(f"    from {name} import x") and FORBIDDEN.search(f"import {name}")
     assert not FORBIDDEN.search("from .data.png import save_png  # PIL's pixels")
+    assert LIBAV_INCLUDE.search("#include <libavcodec/avcodec.h>")
+    assert LIBAV_INCLUDE.search('  # include "libswscale/swscale.h"')
+    assert not LIBAV_INCLUDE.search('#include "h264_tables.h"')
 
 
 CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
@@ -143,6 +157,9 @@ EVAL_CFG = get_eval_defaults()
     lambda: make_indoor_classifier(AlexNetPlaces365()),
     lambda: load_alexnet_places("no_such.pth"),
     lambda: extract_frames_cli(["--frames", "no_such_folder", "--allow-passthrough"]),
+    lambda: extract_frames_cli(["-d", "--location", "no_such_folder"]),
+    lambda: decode_frames("no_such.mp4"),
+    lambda: extract_all_frames("no_such_folder", "no_such_folder"),
     lambda: make_allclass_scorer(HabitatDQN(panorama=False, image_size=64)),
     lambda: build_value_maps(HabitatDQN(panorama=False, image_size=64), "no_such_folder",
                              False),
@@ -155,7 +172,8 @@ EVAL_CFG = get_eval_defaults()
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
         "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main",
         "load_detector", "detect_real_videos_main", "make_indoor_classifier",
-        "load_alexnet_places", "extract_frames_main", "make_allclass_scorer",
+        "load_alexnet_places", "extract_frames_main", "extract_frames_dump", "decode_frames",
+        "extract_all_frames", "make_allclass_scorer",
         "build_value_maps", "visualize_value_main", "visualize_panorama_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

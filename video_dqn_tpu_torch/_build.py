@@ -2,11 +2,13 @@
 
 Two shared libraries with plain C interfaces, each built at first use from
 the sources in the package only, into _build/, and loaded with ctypes:
-  * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS), compiled
-    by nvcc for sm_90a into _build/libvdqn_kernels.so (`build`, `load`);
+  * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS, NV12 -> RGB),
+    compiled by nvcc for sm_90a into _build/libvdqn_kernels.so (`build`,
+    `load`);
   * the host library: every csrc/host/*.cc (the JPEG decode stage, the
     JPEG writer, the LZ4 frame decoder, the FMM solver, the fake env's
-    raycaster and the mesh simulator's BVH raycaster),
+    raycaster, the mesh simulator's BVH raycaster, the MP4 demuxer and the
+    H.264 decoder),
     compiled by the system C++ compiler into
     _build/libvdqn_host.so (`build_host`, `load_host`).
 Each source compiles in a compiler process of its own, all started
@@ -129,14 +131,15 @@ class _Library:
 
 # Each kernel entry takes one pointer to its argument struct
 # (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`;
-# models/detector/boxes.py `_NmsArgs`).
+# models/detector/boxes.py `_NmsArgs`; ops/nv12.py `_Nv12Args`).
 KERNELS = _Library(
     BUILD_DIR / "libvdqn_kernels.so", CSRC, ("*.cu", "*.cuh"),
     lambda src, obj: [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
     lambda out, objs: [_nvcc(), "-shared", "-o", str(out), *map(str, objs)],
     {"vdqn_resize_normalize_identity": ([ctypes.c_void_p], ctypes.c_int),
      "vdqn_resize_normalize_banded": ([ctypes.c_void_p], ctypes.c_int),
-     "vdqn_nms": ([ctypes.c_void_p], ctypes.c_int)})
+     "vdqn_nms": ([ctypes.c_void_p], ctypes.c_int),
+     "vdqn_nv12_rgb": ([ctypes.c_void_p], ctypes.c_int)})
 HOST = _Library(
     BUILD_DIR / "libvdqn_host.so", CSRC / "host", ("*.cc", "*.h"),
     lambda src, obj: [_cxx(), *CXX_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -177,7 +180,23 @@ HOST = _Library(
                                    ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                                    ctypes.c_void_p], None),
      "vdqn_mesh_raycast": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p], None)})
+                            ctypes.c_void_p, ctypes.c_void_p], None),
+     "vdqn_mp4_open": ([ctypes.c_char_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int],
+                       ctypes.c_void_p),
+     "vdqn_mp4_info": ([ctypes.c_void_p, ctypes.c_void_p], None),
+     "vdqn_mp4_samples": ([ctypes.c_void_p] * 6, None),
+     "vdqn_mp4_read": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p,
+                        ctypes.c_int], ctypes.c_int64),
+     "vdqn_mp4_close": ([ctypes.c_void_p], None),
+     "vdqn_h264_open": ([], ctypes.c_void_p),
+     "vdqn_h264_decode": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+     "vdqn_h264_info": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p], ctypes.c_int),
+     "vdqn_h264_copy": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                         ctypes.c_void_p, ctypes.c_int64], ctypes.c_int),
+     "vdqn_h264_release": ([ctypes.c_void_p, ctypes.c_int64], None),
+     "vdqn_h264_close": ([ctypes.c_void_p], None)})
 LIB = KERNELS.path
 HOST_LIB = HOST.path
 

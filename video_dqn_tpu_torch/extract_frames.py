@@ -1,5 +1,19 @@
-"""Frame-filter CLI of the port (counterpart of the root
-dataset/extract_frames.py, with its flags): the Places365 AlexNet's indoor
+"""Frame CLI of the port (counterpart of the root dataset/extract_frames.py,
+with its flags), in two modes.
+
+-d/--dump extracts frames: every <id>.mp4 under --location, in sorted
+order, demuxed and decoded by the host library and sampled at 0.5 fps, the
+kept frames converted to RGB by the card's NV12 -> RGB kernel
+(data/video.py), into --frames/<id>/%04d.jpg; an id whose frame folder
+exists is skipped (resume). It prints `extracted N videos` and returns
+without filtering, as the JAX CLI does.
+
+    python -m video_dqn_tpu_torch.extract_frames -d --location <videos dir> \\
+        --frames <frames dir>
+
+`main(["-d", ...], device="cpu")` converts on the CPU.
+
+Without -d it is the filter pass: the Places365 AlexNet's indoor
 probability and the detector's person flag over every frame under
 --frames, smoothed into --out/<vid>_filters.npy, which process_episodes
 reads. A video whose output exists is skipped (resume).
@@ -10,32 +24,33 @@ reads. A video whose output exists is skipped (resume).
 
 Both models run on the card in bf16 (`main([...], device="cpu")` runs them
 in float32 on the CPU). Without weights the pass would keep every frame,
-so it refuses to run unless --allow-passthrough is given. -d/--dump, the
-extraction of frames from video files, is not ported: it raises.
+so it refuses to run unless --allow-passthrough is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
 from ._device import resolve_device
 from .data.detect import StubDetector
 from .data.filters import make_indoor_classifier, run_filter_pass
+from .data.video import extract_all_frames
 from .models.alexnet_places import load_alexnet_places
 from .models.detector.inference import load_detector
 
 
-def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, str]:
-    """Run the filter pass on `device` (None: the card; raises without
-    CUDA) and return {video: filter npy written}."""
+def main(argv: Optional[List[str]] = None, device=None) -> Union[Dict[str, str], List[str]]:
+    """On `device` (None: the card; raises without CUDA): with -d, extract
+    the videos' frames and return the ids extracted; else run the filter
+    pass and return {video: filter npy written}."""
     parser = argparse.ArgumentParser(description="filter frames (PyTorch port)")
     parser.add_argument("-g", "--gpu", default="0", help="ignored (compat)")
     parser.add_argument("-d", "--dump", action="store_true",
-                        help="dump frames from video files (not ported: raises)")
+                        help="dump frames from the videos under --location (on the card) and stop")
     parser.add_argument("--location", default="dataset/videos")
     parser.add_argument("--frames", default="dataset/frames")
     parser.add_argument("--out", default="dataset/filter_out")
@@ -50,10 +65,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict[str, str]:
                              "(marks every frame indoor/person-free)")
     args = parser.parse_args(argv)
     if args.dump:
-        raise NotImplementedError(
-            "--dump (frames from video files) is not ported to video_dqn_tpu_torch: it "
-            "needs libavformat, libavcodec and libswscale (ROADMAP queue 1, item 9, "
-            "frame extraction); extract the frames to <frames>/<vid>/%04d.jpg first")
+        done = extract_all_frames(args.location, args.frames, 0.5, resolve_device(device))
+        print(f"extracted {len(done)} videos")
+        return done
     device = resolve_device(device)
 
     have_indoor = bool(args.places_weights)
