@@ -196,7 +196,21 @@ prints no result line):
      the dumped frames; (d) hd720.mp4 at fps 0.5 and 0: frames decoded/s,
      written/s and the host split (demux, decode, conversion with its
      copies, JPEG write);
-  15. a JSON line of every ported kernel, then the result line.
+  15. what is left of the port: (a) captions: join_images with values
+     pixel-equal to the committed golden (drawn by cv2; this machine has
+     none), panorama_strip captioned by the published Q-net's scores at
+     224^2 (one identity launch) and 256^2 (one banded launch), a -v
+     geodesic episode's current_pan at every stop equal on the card and
+     the CPU; (b) TPU.REMAT: the published config, 10 steps with it off
+     and 10 on, peak memory and ms/step of each, losses within phase 5's
+     bf16 rule, and basic's BatchNorm statistics after 2 float32 steps
+     equal with it on and off; (c) TPU.DECODE_WORKERS: the training CLI on
+     wide.feather, host-fed, 30 steps with 4 workers (in a process of its
+     own) and with 0, ms/step over steps 11-30 of each, the worker run's
+     labels those of the rows np.random.default_rng(SEED) draws, no worker
+     alive after it; (d) make_synthetic_dataset at its defaults, then 10
+     steps of the training CLI on it, losses finite;
+  16. a JSON line of every ported kernel, then the result line.
 Phase 1 also prints the libav* and NVDEC libraries `ldconfig -p` lists and
 whether libnvcuvid.so.1 loads (it does, but the card's NVDEC engines are
 not exposed there, which is why the port decodes on the host).
@@ -207,6 +221,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import ctypes
+import gc
 import io
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -248,6 +263,7 @@ from video_dqn_tpu_torch.data.mp4 import Mp4Video
 from video_dqn_tpu_torch.data.jpeg import decode_threads, load_images, save_images
 from video_dqn_tpu_torch.data.png import read_png, save_png
 from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
+from video_dqn_tpu_torch.data.synthetic import make_synthetic_dataset
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.eval import batched_runner
 from video_dqn_tpu_torch.eval import evaluate as evaluate_mod
@@ -279,7 +295,7 @@ from video_dqn_tpu_torch.sim.mesh_twin import TwinMesh
 from video_dqn_tpu_torch.sim.native_mesh import NativeMesh
 from video_dqn_tpu_torch.sim.ply import write_ply
 from video_dqn_tpu_torch.train import dqn, inverse
-from video_dqn_tpu_torch.viz.panorama import make_allclass_scorer
+from video_dqn_tpu_torch.viz.panorama import join_images, make_allclass_scorer, panorama_strip
 from video_dqn_tpu_torch.viz.render_grid import render_grid
 from video_dqn_tpu_torch.viz.value_map import (VisualizationGrid, build_value_maps,
                                                orientation_views, render_value_map)
@@ -3959,8 +3975,442 @@ def video_path() -> dict:
     return out
 
 
+# -- phase 15: captions, REMAT, decode workers, the synthetic dataset ------------
+
+GOLDEN = ROOT / "tests" / "data" / "join_images_golden.npz"
+REMAT_STEPS, REMAT_TIMED = 10, 8       # steps a run; the last REMAT_TIMED are timed
+REMAT_FRAMES, REMAT_ROWS = 512, 1024   # the REMAT runs' synthetic table
+BASIC_STEPS, BASIC_BATCH = 2, 32       # basic's REMAT check, float32
+# basic's running statistics, REMAT on against off: the CPU tests' rule for
+# running statistics against JAX's (tests/test_torch_train.py)
+BN_RTOL, BN_ATOL = 1e-4, 1e-5
+# REMAT on against off, published config: each loss and every parameter
+# after the run. The recomputation runs the same kernels on the same
+# inputs, so the two runs agree to rounding at most
+REMAT_ATOL = 1e-6
+WORKERS = 4
+SYNTH_STEPS, SYNTH_BATCH = 10, 32      # make_synthetic_dataset's defaults give 42 rows
+# the decode-worker run of the training CLI, in a process of its own: its
+# workers must fork before CUDA starts there. It imports what it needs,
+# prints "ready", and waits for the experiment's folder on its standard
+# input, so that its imports overlap the parts before it. It records the
+# labels and the time of every batch the stream hands the loop, then prints
+# them against the rows that np.random.default_rng(SEED) draws from the
+# stream's batcher, its launches, its live children and its start-up times.
+WORKER_RUNNER = r"""
+import time
+t_start = time.perf_counter()
+import json, multiprocessing, os, sys
+import numpy as np
+from video_dqn_tpu_torch import train_q_network
+from video_dqn_tpu_torch.data.workers import LABEL_KEYS
+from video_dqn_tpu_torch.ops import resize_normalize as rn
+from video_dqn_tpu_torch.train import dqn
+
+seen, times, streams = [], [], []
+real = dqn.parallel_batches
+
+
+class Spy:
+    def __init__(self, stream):
+        self.stream = stream
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.stream)
+        seen.append({k: batch[k] for k in LABEL_KEYS})
+        times.append(time.perf_counter())
+        return batch
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stream.close()
+
+
+def spied(batcher, batch_size, **kw):
+    stream = real(batcher, batch_size, **kw)
+    streams.append((batcher, batch_size, kw, stream))
+    return Spy(stream)
+
+
+dqn.parallel_batches = spied
+t_ready = time.perf_counter()
+print("ready", flush=True)
+folder = sys.stdin.readline().strip()
+t_go = time.perf_counter()
+train_q_network.main([folder, "--log-every", sys.argv[1]])
+t_end = time.perf_counter()
+(batcher, batch_size, kw, stream), = streams
+rng = np.random.default_rng(kw["seed"])
+equal = True
+for got in seen:
+    rows = rng.integers(0, len(batcher), batch_size)
+    want = {"action": batcher.action, "reward": batcher.reward, "terminal": batcher.terminal,
+            "gt": batcher.gt, "valid_mask": batcher.valid_mask}
+    equal &= all(np.array_equal(got[k], want[k][rows], equal_nan=True) for k in LABEL_KEYS)
+pid = str(os.getpid())
+children = [p for p in os.listdir("/proc") if p.isdigit() and os.path.exists(f"/proc/{p}/stat")
+            and open(f"/proc/{p}/stat").read().rsplit(")", 1)[1].split()[1] == pid]
+print(json.dumps({"batches": len(seen), "labels_equal": bool(equal), "workers": kw["num_workers"],
+                  "seed": kw["seed"], "alive_workers": sum(p.is_alive() for p in stream.procs),
+                  "children": len(children) + len(multiprocessing.active_children()),
+                  "launches": {f"{p}/{d}": n for (p, d), n in rn.LAUNCHES.items()},
+                  "import_s": t_ready - t_start, "go_to_first_batch_s": times[0] - t_go,
+                  "first_batches_s": times[10] - times[0], "after_last_batch_s": t_end - times[-1],
+                  "run_s": t_end - t_go}))
+"""
+
+
+class WorkerRunner:
+    """WORKER_RUNNER started at once, importing in the background; `run`
+    hands it an experiment folder and returns its JSON line. Closing it
+    kills it if it is still running."""
+
+    def __init__(self):
+        self.ready = False
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", WORKER_RUNNER, str(TRAIN_LOG_EVERY)], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def wait_ready(self) -> None:
+        if self.ready:
+            return
+        line = self.proc.stdout.readline()
+        self.ready = line.strip() == "ready"
+        if not self.ready:
+            out, err = self.proc.communicate(timeout=60)
+            raise AssertionError(f"the decode-worker runner did not start:\n{line}{out[-3000:]}"
+                                 f"\n{err[-3000:]}")
+
+    def run(self, folder: str) -> dict:
+        self.wait_ready()
+        out, err = self.proc.communicate(folder + "\n", timeout=300)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the decode-worker CLI failed:\n{out[-3000:]}\n{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.communicate()
+
+
+def caption_check(tmp: Path, ckpt: Path) -> dict:
+    """Phase 15 (a): join_images with captions pixel-equal to the committed
+    golden (drawn by cv2 in the JAX package; this machine has no cv2);
+    panorama_strip captioned by the published Q-net's scores at 224^2
+    (identity) and 256^2 (banded), its scores within SERVE_ATOL of float32
+    card forwards; a -v geodesic episode at 224 px: every stop's
+    current_pan on the card equal to the CPU's, pixel for pixel, and no
+    launch in the card's run (the geodesic scorer runs no network)."""
+    g = np.load(GOLDEN)
+    t0 = time.perf_counter()
+    annotated = join_images(list(g["ims"]), g["vals"], br_text="bed", bl_text="step 7")
+    golden_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(annotated, g["annotated"]):
+        raise AssertionError(f"join_images: {(annotated != g['annotated']).sum()} values differ "
+                             "from the golden")
+    model = load_eval_model(SimpleNamespace(PRETRAINED_MODEL_LOCATION=str(ckpt)),
+                            published_config(), image_size=IMAGE_SIZE)
+    allclass = make_allclass_scorer(model, image_size=IMAGE_SIZE)
+    out = {"golden_ms": golden_ms, "launches": {"identity": 0, "banded": 0}}
+    for side, path in ((IMAGE_SIZE, "identity"), (256, "banded")):
+        env = FakeNavEnv(image_size=side, seed=SEED)
+        env.set_agent_state(*env.sample_start_state())
+        start = env.agent_state()
+        allclass(np.zeros((STOP_VIEWS, side, side, 3), np.uint8))  # the shape's first call
+        rn.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        strip, scores = panorama_strip(env, scorer=lambda v: allclass(v)[:, 0])
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(rn.LAUNCHES)
+        env.set_agent_state(*start)
+        views = np.stack([env.step(1)[0]["rgb"] for _ in range(STOP_VIEWS)])
+        err = float(np.abs(scores - allclass_f32(model, views[:, None])[:, 0]).max())
+        if launches != {(path, "bfloat16"): 1} or err > SERVE_ATOL or \
+                not np.array_equal(strip, join_images(list(views), -scores)) or \
+                strip.shape[0] != side + 50:
+            raise AssertionError(f"panorama_strip at {side}^2: launches {launches}, bf16 vs "
+                                 f"float32 card {err:.6f}, strip {strip.shape}")
+        out["launches"][path] += 1
+        out[side] = {"ms": ms, "bf16_vs_f32": err, "shape": list(strip.shape)}
+        log(f"[rest] panorama_strip, published Q-net scorer, {STOP_VIEWS} views of {side}^2 "
+            f"({path} kernel): {ms:.3f} ms (render, score, captions); strip {strip.shape}; "
+            f"launches {launches}; bf16 vs float32 card {err:.6f} (limit {SERVE_ATOL})")
+
+    pans = {}
+    saved = evaluate_mod.join_images
+    for device in ("cuda", "cpu"):
+        made = pans.setdefault(device, [])
+
+        def recording(*a, **kw):
+            made.append(saved(*a, **kw))
+            return made[-1]
+
+        cfg = strip_config(tmp, f"pan_{device}")
+        with fake_env_at(IMAGE_SIZE):
+            env, house, ep = evaluate_cli.make_env_and_episode()
+        evaluate_mod.join_images = recording
+        rn.LAUNCHES.clear()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_policy(cfg, np.array([ep], dtype=object), env_factory=lambda h, mc, c: env,
+                           house_factory=lambda name: house, visualize_every=1, device=device)
+        finally:
+            evaluate_mod.join_images = saved
+        if device == "cuda":
+            episode_launches = dict(rn.LAUNCHES)
+    card, cpu = pans["cuda"], pans["cpu"]
+    if episode_launches:
+        raise AssertionError(f"the -v geodesic episode on the card launched {episode_launches}")
+    if not card or len(card) != len(cpu) or \
+            not all(np.array_equal(a, b) for a, b in zip(card, cpu)):
+        raise AssertionError(f"current_pan: {len(card)} stops on the card, {len(cpu)} on the "
+                             "CPU, or a strip differs")
+    out["stops"], out["episode_launches"] = len(card), episode_launches
+    log(f"[rest] join_images with captions equals the golden pixel for pixel ({golden_ms:.3f} "
+        f"ms); a -v geodesic episode at {IMAGE_SIZE} px: {len(card)} stops, every current_pan "
+        f"{card[0].shape} equal on the card and the CPU; the card's episode launched "
+        f"{episode_launches or 'nothing'} (a geodesic scorer)")
+    return out
+
+
+def remat_runs(tmp: Path) -> dict:
+    """Phase 15 (b): the published config (extra_capacity, 224 px, B = 256,
+    bf16) from the seeded state, REMAT_STEPS steps with REMAT off, then on,
+    on the same device-table batches: peak memory, ms/step over the last
+    REMAT_TIMED steps, each step's loss against the other run's within
+    phase 5's bf16 rule and within REMAT_ATOL, every parameter after the
+    run within REMAT_ATOL, and the trunk moved from its init with REMAT on
+    (its gradients reach it). Then BASIC_STEPS float32 steps of the basic
+    architecture with REMAT off and on, with cuDNN's deterministic
+    algorithms (without them the two runs' float32 steps are not
+    bit-reproducible on the card): the running statistics equal within
+    BN_RTOL, BN_ATOL, and every parameter and buffer within REMAT_ATOL."""
+    tables = synthetic_video_tables(REMAT_FRAMES, REMAT_ROWS, IMAGE_SIZE, seed=SEED)
+    dds = DeviceDataset(tables, 256, seed=SEED)
+    runs, params, trunk_moved = {}, {}, {}
+    rn.LAUNCHES.clear()
+    for remat in (False, True):
+        config = experiment(tmp / f"remat_{remat}", **TRAIN_CUTS, TPU={"REMAT": remat})
+        gc_cuda()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = dqn.create_train_state(config)
+        if state.model.remat != remat:
+            raise AssertionError(f"REMAT {remat}: the model's remat is {state.model.remat}")
+        step_fn = dqn.make_train_step(state.model, config)
+        init = {k: v.detach().cpu().clone() for k, v in state.model.named_parameters()}
+        losses = []
+        for k in range(REMAT_STEPS):
+            if k == REMAT_STEPS - REMAT_TIMED:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(step_fn(state, dds.sample(k))["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+        runs[remat] = {"losses": [float(x) for x in losses], "ms_per_step": ms,
+                       "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+        params[remat] = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+        trunk_moved[remat] = max(float((params[remat][k] - init[k]).abs().max())
+                                 for k in init if k.startswith("resnet."))
+        del state, step_fn, losses, init
+    launches = dict(rn.LAUNCHES)
+    off, on = runs[False], runs[True]
+    worst = max(abs(a - b) - (BF16_LOSS_RTOL * abs(b) + BF16_LOSS_ATOL)
+                for a, b in zip(on["losses"], off["losses"]))
+    diff = [abs(a - b) for a, b in zip(on["losses"], off["losses"])]
+    param_diff = max(float((params[True][k] - params[False][k]).abs().max())
+                     for k in params[False])
+    if launches != {("identity", "bfloat16"): 4 * REMAT_STEPS} or worst > 0 or \
+            not np.all(np.isfinite(on["losses"])) or max(diff) > REMAT_ATOL or \
+            params[True].keys() != params[False].keys() or param_diff > REMAT_ATOL or \
+            not trunk_moved[True] > 0:
+        raise AssertionError(f"REMAT: launches {launches}, losses on {on['losses']} vs off "
+                             f"{off['losses']}, parameters differ by {param_diff}, the trunk "
+                             f"moved {trunk_moved}")
+    log(f"[rest] REMAT, published config (B = 256, bf16), {REMAT_STEPS} steps each: off "
+        f"{off['ms_per_step']:.4f} ms/step, peak {off['peak_gib']:.3f} GiB; on "
+        f"{on['ms_per_step']:.4f} ms/step, peak {on['peak_gib']:.3f} GiB (peak over the state "
+        f"and the steps, less what was allocated before); memory x"
+        f"{on['peak_gib'] / off['peak_gib']:.3f}, time x{on['ms_per_step'] / off['ms_per_step']:.3f};"
+        f" loss |on - off| max {max(diff):.3g} (limit {REMAT_ATOL}, and phase 5's bf16 rule); "
+        f"parameters after {REMAT_STEPS} steps |on - off| max {param_diff:.3g} (limit "
+        f"{REMAT_ATOL}); the trunk moved up to {trunk_moved[True]:.3g} from its init with "
+        f"REMAT on; launches {launches}")
+
+    stats, nets = {}, {}
+    with no_tf32(), cudnn_deterministic():
+        for remat in (False, True):
+            config = experiment(tmp / f"basic_{remat}", **TRAIN_CUTS, ARCHITECTURE="basic",
+                                TPU={"REMAT": remat, "COMPUTE_DTYPE": "float32",
+                                     "BATCH_SIZE": BASIC_BATCH})
+            state = dqn.create_train_state(config)
+            step_fn = dqn.make_train_step(state.model, config)
+            small = DeviceDataset(tables, BASIC_BATCH, seed=SEED)
+            with plain_prologue():
+                for k in range(BASIC_STEPS):
+                    step_fn(state, small.sample(k))
+            nets[remat] = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+            stats[remat] = {k: v for k, v in nets[remat].items()
+                            if "running" in k or "num_batches" in k}
+            del state, step_fn
+    worst_bn = max(float(((stats[True][k].double() - stats[False][k].double()).abs()
+                          - BN_ATOL - BN_RTOL * stats[False][k].double().abs()).max())
+                   for k in stats[False])
+    moved = float((stats[True]["resnet.bn1.running_mean"].abs()).sum())
+    basic_diff = max(float((nets[True][k].double() - nets[False][k].double()).abs().max())
+                     for k in nets[False])
+    if stats[True].keys() != stats[False].keys() or worst_bn > 0 or not moved > 0 or \
+            nets[True].keys() != nets[False].keys() or basic_diff > REMAT_ATOL:
+        raise AssertionError(f"basic REMAT: running statistics beyond {BN_RTOL}/{BN_ATOL} by "
+                             f"{worst_bn}, or unmoved ({moved}); parameters and buffers "
+                             f"|on - off| {basic_diff}")
+    log(f"[rest] basic, {BASIC_STEPS} float32 steps at B = {BASIC_BATCH}, deterministic cuDNN, "
+        f"REMAT on vs off: {len(stats[False])} BatchNorm buffers equal within rtol {BN_RTOL}, "
+        f"atol {BN_ATOL} (worst margin {worst_bn:.3g}); statistics moved once a step; every "
+        f"parameter and buffer |on - off| max {basic_diff:.3g} (limit {REMAT_ATOL})")
+    return {"off": off, "on": on, "loss_abs_diff": diff, "param_abs_diff": param_diff,
+            "trunk_moved": trunk_moved[True], "basic_bn_margin": worst_bn,
+            "basic_abs_diff": basic_diff,
+            "launches": {"identity": launches[("identity", "bfloat16")], "banded": 0}}
+
+
+class cudnn_deterministic:
+    """cuDNN's deterministic algorithms only, so that two runs of the same
+    float32 steps can be held to each other near 0."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.saved
+
+
+def gc_cuda() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def worker_runs(tmp: Path, runner: WorkerRunner) -> dict:
+    """Phase 15 (c): the training CLI on wide.feather, host-fed, published
+    config, 30 steps without checkpoints, with DECODE_WORKERS 4 (in
+    `runner`'s process, WORKER_RUNNER) and 0 (here): ms/step over steps
+    11-30 of each; the worker run's batch labels equal to the rows
+    np.random.default_rng(SEED) draws, no worker or child alive after it,
+    two identity launches a step; the worker process's start-up."""
+    torch_qdata.link_wide_frames()
+    steps = TRAIN_CUTS["NUM_STEPS"]
+    out = {}
+    for workers in (WORKERS, 0):
+        folder = write_experiment(tmp / f"workers_{workers}",
+                                  **{**TRAIN_CUTS, "CHECKPOINT_INTERVAL": 10 ** 6},
+                                  DATASET=torch_qdata.WIDE_FEATHER,
+                                  TPU={"DEVICE_DATASET": False, "DECODE_WORKERS": workers})
+        t0 = time.perf_counter()
+        if workers:
+            seen = runner.run(folder)
+            if seen["batches"] < steps or not seen["labels_equal"] or seen["alive_workers"] or \
+                    seen["children"] or seen["workers"] != WORKERS or seen["seed"] != SEED or \
+                    seen["launches"] != {"identity/bfloat16": 2 * steps}:
+                raise AssertionError(f"decode workers: {seen}")
+            launches = seen["launches"]["identity/bfloat16"]
+        else:
+            rn.LAUNCHES.clear()
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_q_network.main([folder, "--log-every", str(TRAIN_LOG_EVERY)])
+            launches = rn.LAUNCHES[("identity", "bfloat16")]
+            if dict(rn.LAUNCHES) != {("identity", "bfloat16"): 2 * steps}:
+                raise AssertionError(f"0 decode workers: launches {dict(rn.LAUNCHES)}")
+            seen = {}
+        wall = time.perf_counter() - t0
+        rate = steady_rate(ExperimentConfig(folder, resume=True))
+        out[workers] = {**rate, **seen, "wall_s": wall, "launches": launches}
+        log(f"[rest] training CLI on wide.feather, host-fed, DECODE_WORKERS {workers}: "
+            f"{rate['ms_per_step']:.4f} ms/step over steps 11-{steps} "
+            f"({rate['frames_per_s']:.1f} frames/s), {wall:.2f} s with start-up"
+            + (f" (its process: imports {seen['import_s']:.2f} s ahead of the run; folder "
+               f"handed over to the first batch {seen['go_to_first_batch_s']:.2f} s, batches "
+               f"1-11 {seen['first_batches_s']:.2f} s, after the last batch "
+               f"{seen['after_last_batch_s']:.2f} s); {seen['batches']} batches drawn, their "
+               f"labels equal the rows default_rng({SEED}) draws; workers alive after it "
+               f"{seen['alive_workers']}, children {seen['children']}" if workers else ""))
+    ratio = out[WORKERS]["ms_per_step"] / out[0]["ms_per_step"]
+    log(f"[rest] {WORKERS} decode workers vs 0: x{ratio:.3f} ms/step")
+    return {"ms_per_step": {w: out[w]["ms_per_step"] for w in out}, "ratio": ratio,
+            "runs": out,
+            "launches": {"identity": sum(out[w]["launches"] for w in out), "banded": 0}}
+
+
+def synthetic_run(tmp: Path) -> dict:
+    """Phase 15 (d): make_synthetic_dataset at its defaults, then the
+    training CLI for SYNTH_STEPS steps on it (published config, bf16,
+    host-fed, B = SYNTH_BATCH): finite losses, two identity launches a
+    step."""
+    t0 = time.perf_counter()
+    feather = make_synthetic_dataset(str(tmp / "synthetic"))
+    made_s = time.perf_counter() - t0
+    rows = len(read_feather(feather)["before_image"])
+    folder = write_experiment(tmp / "synthetic_q", **{**TRAIN_CUTS, "NUM_STEPS": SYNTH_STEPS,
+                                                     "CHECKPOINT_INTERVAL": SYNTH_STEPS},
+                              DATASET=feather, TPU={"BATCH_SIZE": SYNTH_BATCH, "DEVICE_DATASET": False})
+    rn.LAUNCHES.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_q_network.main([folder, "--log-every", "5"])
+    launches = dict(rn.LAUNCHES)
+    losses = [r["value"] for r in read_metrics(ExperimentConfig(folder, resume=True).run_dir,
+                                               "avg_q_loss/train")]
+    if len(losses) != SYNTH_STEPS // 5 or not np.all(np.isfinite(losses)) or \
+            launches != {("identity", "bfloat16"): 2 * SYNTH_STEPS}:
+        raise AssertionError(f"synthetic dataset: losses {losses}, launches {launches}")
+    log(f"[rest] make_synthetic_dataset (defaults: {rows} rows) in {made_s:.3f} s, then the "
+        f"training CLI {SYNTH_STEPS} steps at B = {SYNTH_BATCH}: EMA losses {losses}; "
+        f"launches {launches}")
+    return {"rows": rows, "made_s": made_s, "losses": losses,
+            "launches": {"identity": launches[("identity", "bfloat16")], "banded": 0}}
+
+
+def rest_path() -> dict:
+    """Phase 15: (a) captions, (b) REMAT, (c) decode workers, (d) the
+    synthetic dataset. launches sums the main-path runs, each counted
+    from 0 (the worker run's in its own process, started first so that
+    its imports overlap (a); (b) waits for them)."""
+    t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    runner = WorkerRunner()
+    try:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+            tmp = Path(tmp_name)
+            ckpt = tmp / "qnet.torch"
+            seeded_checkpoint(ckpt, published_config())
+            parts, seconds = {}, {}
+            for name, fn, args in (("captions", caption_check, (tmp, ckpt)),
+                                   ("remat", remat_runs, (tmp,)),
+                                   ("workers", worker_runs, (tmp, runner)),
+                                   ("synthetic", synthetic_run, (tmp,))):
+                if name == "remat":
+                    runner.wait_ready()  # its imports stay out of the REMAT times
+                t1 = time.perf_counter()
+                parts[name] = fn(*args)
+                seconds[name] = time.perf_counter() - t1
+    finally:
+        runner.close()
+    out = {**parts, "launches": {p: sum(r["launches"][p] for r in parts.values())
+                                 for p in ("identity", "banded")}, "part_seconds": seconds}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[rest] phase 15 in {out['seconds']:.1f} s (parts: "
+        f"{', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}); launches {out['launches']}")
+    return out
+
+
 PHASES = ("serve", "train", "real_data", "inverse", "label", "eval", "eval_mesh", "detector",
-          "frontend", "viz", "video")
+          "frontend", "viz", "video", "rest")
 
 
 def counted_phase(fn, *args) -> tuple:
@@ -3992,6 +4442,7 @@ def main() -> None:
     res["frontend"], whole["frontend"] = counted_phase(frontend_path)
     res["viz"], whole["viz"] = counted_phase(viz_path)
     res["video"], whole["video"] = counted_phase(video_path)
+    res["rest"], whole["rest"] = counted_phase(rest_path)
     # each phase's main-path launches: its own count where it reads one
     # (every phase the resize kernel's; the detector, the front end and
     # video the NMS's; video the NV12 kernel's), else the whole phase's

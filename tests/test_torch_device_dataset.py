@@ -182,8 +182,8 @@ def test_run_train_needs_a_batcher_and_refuses_unported_keys(tmp_path):
     with pytest.raises(FileNotFoundError, match="none"):
         run_train(ExperimentConfig(folder), device="cpu")
     with open(f"{folder}/config.yml", "a") as f:
-        f.write("  DECODE_WORKERS: 2\n  MESH_MODEL: 2\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*DECODE_WORKERS.*MESH"):
+        f.write("  SHARD_DATASET: True\n  MESH_MODEL: 2\n")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*SHARD_DATASET.*MESH"):
         run_train(ExperimentConfig(folder), batcher=object(), device="cpu")
 
 

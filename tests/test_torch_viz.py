@@ -3,8 +3,10 @@ package's video_dqn_tpu/viz on the same inputs: the colormap tables and
 render_value_map byte for byte, crop_range and to_grid exactly, the grid
 reader's cells, value maps and the all-class scorer within 1e-4 (float32
 on the CPU, the same decoded pixels on both sides), the map figures, the
-panorama strip exactly (against the committed golden), vis_panorama's
-correlations within 1e-9, and render_grid's JPEG files byte for byte."""
+panorama strip and its captions exactly (against the committed golden
+and JAX's cv2 text), vis_panorama's correlations within 1e-9 and its
+figure's numbers and labels where they belong, and render_grid's JPEG
+files byte for byte."""
 
 import math
 import os
@@ -22,6 +24,7 @@ from video_dqn_tpu_torch.data.jpeg import load_images
 from video_dqn_tpu_torch.data.png import read_png
 from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
 from video_dqn_tpu_torch.viz import colormaps, panorama, value_map
+from video_dqn_tpu_torch.viz.text import put_text, text_width
 from video_dqn_tpu_torch.viz.render_grid import render_grid
 from tests import torch_port_util
 from tests.torch_qdata import MEAN_BOUND
@@ -120,14 +123,33 @@ def test_join_images_equals_the_golden_strip():
 
 
 def test_captions_raise_naming_item_8b():
+    """The captions that raised NotImplementedError naming item 8b until
+    it was ported now draw what JAX draws."""
     ims = list(np.load(GOLDEN)["ims"])
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        panorama.join_images(ims, np.arange(12.0))
-    env = FakeNavEnv(image_size=32, seed=3)
-    before = env.agent_state()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        panorama.panorama_strip(env, scorer=lambda views: np.zeros(len(views)))
-    np.testing.assert_array_equal(env.agent_state()[0], before[0])  # env untouched
+    np.testing.assert_array_equal(panorama.join_images(ims, np.arange(12.0)),
+                                  jax_panorama.join_images(ims, np.arange(12.0)))
+    envs = FakeNavEnv(image_size=32, seed=3), JaxFakeNavEnv(image_size=32, seed=3)
+    got, _ = panorama.panorama_strip(envs[0], scorer=lambda views: np.zeros(len(views)))
+    want, _ = jax_panorama.panorama_strip(envs[1], scorer=lambda views: np.zeros(len(views)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_join_images_with_values_equals_the_golden_and_jaxs():
+    g = np.load(GOLDEN)
+    np.testing.assert_array_equal(
+        panorama.join_images(list(g["ims"]), g["vals"], br_text="bed", bl_text="step 7"),
+        g["annotated"])
+    rng = np.random.default_rng(5)
+    for n, (h, w) in ((12, (96, 128)), (12, (224, 224)), (5, (40, 300)), (4, (30, 64))):
+        ims = [rng.integers(0, 256, (h, w, 3), np.uint8) for _ in range(n)]
+        # negative values, values wider than their crop, one that runs
+        # off its tile, NaN and inf
+        values = np.concatenate([rng.normal(0, 10 ** rng.uniform(0, 6), n - 2), [-np.inf, np.nan]])
+        for br, bl in (("", ""), ("Object Class: Dining Table", "Predicted Values"),
+                       ("a much longer label than the strip is wide, on purpose", "x")):
+            got = panorama.join_images(ims, values, br_text=br, bl_text=bl)
+            want = jax_panorama.join_images(ims, values, br_text=br, bl_text=bl)
+            np.testing.assert_array_equal(got, want, err_msg=f"{n} {h}x{w} {br!r}")
 
 
 def test_panorama_strip_equals_jaxs():
@@ -139,6 +161,21 @@ def test_panorama_strip_equals_jaxs():
     assert scores is None
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(envs[0].agent_state()[0], envs[1].agent_state()[0])
+
+
+def test_panorama_strip_with_a_scorer_equals_jaxs():
+    envs = FakeNavEnv(image_size=64, seed=2), JaxFakeNavEnv(image_size=64, seed=2)
+    for env in envs:
+        env.reset(reachable=False)
+
+    def scorer(views):
+        return views.reshape(len(views), -1).mean(axis=1) / 255.0 - 0.5
+
+    got, scores = panorama.panorama_strip(envs[0], scorer=scorer, num_rotations=12)
+    want, jax_scores = jax_panorama.panorama_strip(envs[1], scorer=scorer, num_rotations=12)
+    np.testing.assert_array_equal(scores, jax_scores)
+    assert got.shape == want.shape and got.shape[0] == 64 + panorama.CAPTION_H
+    np.testing.assert_array_equal(got, want)
 
 
 def test_grid_reader_finds_jaxs_cells(grid):
@@ -266,18 +303,29 @@ def test_vis_panorama_correlations_match_jax(tmp_path):
         assert r2 == rot
     strip = panorama.join_images(views)
     row_h = round(48 * panorama.ROW_RATIO / panorama.STRIP_RATIO)
-    assert figure.dtype == np.uint8 and figure.shape == (48 + 5 * row_h, strip.shape[1], 3)
-    np.testing.assert_array_equal(figure[:48], strip)
+    margin = figure.shape[1] - strip.shape[1]
+    labels = [f"{name} r={c:.2f}" for name, c in zip("abcde", corrs)]
+    assert margin == max(map(text_width, labels)) + 2 * panorama.LABEL_PAD
+    assert figure.dtype == np.uint8 and figure.shape == (48 + 5 * row_h, margin + strip.shape[1], 3)
+    np.testing.assert_array_equal(figure[:48, margin:], strip)
+    assert (figure[:48, :margin] == 255).all()
     np.testing.assert_array_equal(read_png(out), figure)
     # each class row runs over Wistia's whole range, reversed like the strip
-    # (the figure is the last call's, of the values -expected)
+    # (the figure is the last call's, of the values -expected), where the
+    # cell's number leaves the cell's colour
     cell = strip.shape[1] // 12
     wistia = (colormaps.WISTIA * 255).astype(np.uint8)
     for c in range(5):
-        row = figure[48 + c * row_h + row_h // 2, cell // 2::cell]
         values = -expected[::-1, c]
-        np.testing.assert_array_equal(row[np.argmin(values)], wistia[0])
-        np.testing.assert_array_equal(row[np.argmax(values)], wistia[-1])
+        for i, want in ((np.argmin(values), wistia[0]), (np.argmax(values), wistia[-1])):
+            band = figure[48 + c * row_h:48 + (c + 1) * row_h,
+                          margin + i * cell:margin + (i + 1) * cell]
+            number = put_text(np.full_like(band, 255), f"{values[i]:.2f}",
+                              ((cell - text_width(f"{values[i]:.2f}")) // 2,
+                               (row_h + panorama.DIGIT_H) // 2))
+            blank = (number == 255).all(axis=-1)
+            assert blank.any()
+            np.testing.assert_array_equal(band[blank], np.broadcast_to(want, band[blank].shape))
 
     # a class with no goals gets NaN, not an error
     _, part = panorama.vis_panorama(env, lambda v: expected[:, :2], [goals[0][0], []], num=12,
@@ -286,6 +334,54 @@ def test_vis_panorama_correlations_match_jax(tmp_path):
                                          num=12, probe_steps=4)
     assert np.isclose(part[0], 1.0) and np.isnan(part[1]) and np.isnan(jpart[1])
     assert abs(part[0] - jpart[0]) <= CORR_ATOL
+
+
+def test_vis_panorama_numbers_land_in_their_cells():
+    """At 224 px each cell holds its value's "%.2f", centred, drawn over
+    the cell's Wistia colour (and nothing of it outside the cell), and the
+    left margin each class's label, right-aligned on its row: `name r=`
+    where the correlation is finite, the name alone where it is NaN."""
+    env = FakeNavEnv(image_size=224, seed=3)
+    env.reset(reachable=False)
+    goals = [[env.sample_reachable_goal()] for _ in range(4)] + [[]]
+    rng = np.random.default_rng(1)
+    values = rng.normal(0, 3, (12, 5))
+    names = ["bed", "chair", "couch", "dining table", ""]
+    figure, corrs = panorama.vis_panorama(env, lambda v: values, goals, num=12,
+                                          class_names=names, probe_steps=4)
+    assert np.isnan(corrs[4]) and np.isfinite(corrs[:4]).all()
+    strip_h = 224
+    row_h = round(strip_h * panorama.ROW_RATIO / panorama.STRIP_RATIO)
+    labels = [f"{n} r={c:.2f}" for n, c in zip(names[:4], corrs[:4])] + [""]
+    margin = max(map(text_width, labels)) + 2 * panorama.LABEL_PAD
+    cell = (figure.shape[1] - margin) // 12
+    rows = values[::-1].T
+    wistia = (colormaps.WISTIA * 255).astype(np.uint8)
+    for c in range(5):
+        top = strip_h + c * row_h
+        normed = colormaps.normalize(rows[c], rows[c].min(), rows[c].max())
+        colours = (colormaps.apply(colormaps.WISTIA, normed) * 255).astype(np.uint8)
+        for i, v in enumerate(rows[c]):
+            band = figure[top:top + row_h, margin + i * cell:margin + (i + 1) * cell]
+            s = f"{v:.2f}"
+            number = put_text(np.full_like(band, 255), s,
+                              ((cell - text_width(s)) // 2, (row_h + panorama.DIGIT_H) // 2))
+            ink = (number < 255).any(axis=-1)
+            assert ink.sum() > 20, (c, i)  # the whole number fits its cell
+            cols = np.flatnonzero(ink.any(axis=0))
+            assert abs((cols[0] + cols[-1]) / 2 - (cell - 1) / 2) <= 2  # centred
+            want = (colours[i].astype(np.uint32) * number + 127) // 255
+            np.testing.assert_array_equal(band, want.astype(np.uint8))
+        assert np.isin(colours, wistia).all()
+        label = figure[top:top + row_h, :margin]
+        want = put_text(np.full_like(label, 255), labels[c],
+                        (margin - panorama.LABEL_PAD - text_width(labels[c]),
+                         (row_h + panorama.DIGIT_H) // 2))
+        np.testing.assert_array_equal(label, want)
+        if labels[c]:
+            ink_cols = np.flatnonzero((label < 255).any(axis=(0, 2)))
+            assert ink_cols[-1] < margin - panorama.LABEL_PAD + 1  # right-aligned
+    assert labels[3].startswith("dining table r=") and labels[4] == ""
 
 
 def test_render_grid_writes_jaxs_files(tmp_path):

@@ -1,6 +1,7 @@
 """The port's episode visualisation and visualisation CLIs against the JAX
 package's: the planner's per-step frames (render_map_rgb exactly, after
-every agent step of geodesic fake-env episodes), the strip run_policy
+every agent step of geodesic fake-env episodes) and each stop's captioned
+strip (`current_pan`) pixel for pixel, the strip run_policy
 writes under VIDEO_LOCATION (the same name, the same pixels), results
 unchanged by visualising, and the visualize_value and visualize_panorama
 CLIs against the root JAX CLIs (each value-map pixel within one of
@@ -58,7 +59,8 @@ def recording_planners(monkeypatch):
     """Record every planner each package's episode makes: [port, JAX]. Each
     port planner's `frames` lists every logged frame as JAX's planner
     lists them (rgbs, depths, maps; a rotation twice), its map drawn
-    from the layers `log_frame` kept."""
+    from the layers `log_frame` kept; each planner's `stop_pans` lists every
+    strip its stops set as `current_pan`."""
     made = [[], []]
     log_frame = mapper_mod.log_frame
 
@@ -73,9 +75,20 @@ def recording_planners(monkeypatch):
 
         class Recording(base):
             def __init__(self, *a, _store=store, **kw):
+                self.stop_pans = []
                 super().__init__(*a, **kw)
                 self.frames = []
                 _store.append(self)
+
+            @property
+            def current_pan(self):
+                return self._pan
+
+            @current_pan.setter
+            def current_pan(self, pan):
+                self._pan = pan
+                if pan is not None:
+                    self.stop_pans.append(pan)
 
         monkeypatch.setattr(module, "DepthMapperAndPlanner", Recording)
     return made
@@ -113,7 +126,12 @@ def test_run_policy_visualises_as_jax(tmp_path, monkeypatch, stop):
         for mine, theirs in zip(p.frames, zip(j.rgbs, j.depths, j.maps)):
             for a, b in zip(mine, theirs):
                 np.testing.assert_array_equal(a, b)
-        assert p.current_pan is None  # no captioned strips until item 8b
+        # each stop's captioned strip, as JAX's
+        assert len(p.stop_pans) == len(j.stop_pans) > 0
+        for mine, theirs in zip(p.stop_pans, j.stop_pans):
+            assert mine.shape == theirs.shape
+            np.testing.assert_array_equal(mine, theirs)
+        np.testing.assert_array_equal(p.current_pan, j.current_pan)
 
     names = [sorted(x.relative_to(tmp_path / f"videos_{tag}")
                     for x in (tmp_path / f"videos_{tag}").rglob("*.png"))
@@ -230,7 +248,10 @@ def test_visualize_panorama_cli_matches_jaxs(experiment, tmp_path, monkeypatch, 
     for k in range(12):
         env.set_agent_state(pos, rot + 2 * math.pi * k / 12)
         views.append(env.get_observation()["rgb"])
-    np.testing.assert_array_equal(figure[:48], jax_join_images(views))
+    strip = jax_join_images(views)
+    margin = figure.shape[1] - strip.shape[1]  # the class labels' column
+    assert margin > 0 and (figure[:48, :margin] == 255).all()
+    np.testing.assert_array_equal(figure[:48, margin:], strip)
 
     # without --model-config: a seeded extra_capacity net (the JAX CLI's flagship)
     corrs = visualize_panorama.main(["--size", "96", "--analysis",

@@ -36,6 +36,7 @@ from ..data.detect import COCO_TARGET_IDS
 from ..plan.mapper import DepthMapperAndPlanner
 from ..plan.visualize import write_combined
 from ..sim.gibson import relevant_objects
+from ..viz.panorama import join_images
 from .policy_config import name_from_config
 
 SUCCESS_DISTANCE = 1.0
@@ -209,9 +210,9 @@ def episode_generator(
     `device` (None: the card). With `visualize` and SLAM the planner logs
     every step's frames and the episode's last rgb | depth | map strip is
     written under VIDEO_LOCATION/<name_from_config> as JAX names it; the
-    JAX package also keeps a captioned strip of each stop in
-    `planner.current_pan`, which no file receives and which stays None
-    here until the captions are ported (ROADMAP.md, queue 1, item 8b).
+    planner's `current_pan` holds the captioned strip of the latest stop
+    (its views, their negated scores, "Predicted Values" and the object
+    class), overwritten at each stop and written to no file, as in JAX.
     With COMBINE_DETECTOR, `detector` fuses into each stop's scores."""
     hn, floor, class_label, goal_dist, pos, rot = ep
 
@@ -271,6 +272,7 @@ def episode_generator(
             ims, _, _, _ = env.step(1)
             views.append(ims)
             locs.append([*planner.pos_to_loc(env.pos), env.angle])
+        all_scores = []
         batched = bool(config.BATCHED_REASONING) if "BATCHED_REASONING" in config else True
         if batched:
             # one mapping call and one score call for the stop
@@ -284,6 +286,7 @@ def episode_generator(
                     scores, [v["rgb"] for v in views], detector, class_label,
                     config.CONFIDENCE_THRESHOLD,
                 )
+            all_scores = list(map(float, scores))
             for k in range(NUM_ROTATIONS):
                 ang = locs[k][2]
                 dest = check_movement(env, ang, planner, rng)
@@ -305,11 +308,19 @@ def episode_generator(
                         np.array([sc]), [ims["rgb"]], detector, class_label,
                         config.CONFIDENCE_THRESHOLD,
                     )[0]
+                all_scores.append(float(sc))
                 if dest is not None:
                     sc_k = float(sc)
                     if score_dest is not None:
                         sc_k = float(score_dest(dest))
                     openlist.append((sc_k, dest))
+
+        if visualize and config.SLAM and planner.log_visualization:
+            strips = [np.asarray(v["rgb"])[0] if np.asarray(v["rgb"]).ndim == 4
+                      else np.asarray(v["rgb"]) for v in views]
+            planner.current_pan = join_images(
+                strips, -np.array(all_scores), bl_text="Predicted Values",
+                br_text=f"Object Class: {class_label.title()}")
 
     macro_steps = 50 if config.SLAM else 30
 

@@ -32,12 +32,14 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 from typing import List, Optional
 
 import numpy as np
 
 from ._device import resolve_device
+from .core.profiling import trace
 from .eval.batched_runner import run_policy_batched
 from .eval.fixtures import make_env_and_episode, make_episode_set, make_mesh_env_and_episode
 from .eval.policy_config import load_file, name_from_config
@@ -139,47 +141,35 @@ def main(argv: Optional[List[str]] = None, device=None):
             "house_factory": lambda name: house,
         }
 
-    prof = None
+    path = os.path.join(config.RESULT_LOCATION, f"{name_from_config(config)}_trace.json")
+    with trace(path, device) if args.profile else contextlib.nullcontext():
+        if args.batched and config.SCORE == "model" and "env_factory" in kwargs:
+            model, mc = load_scoring_model(config, device)
+            scorer = make_multiclass_scorer(model, image_size=int(mc.TPU.IMAGE_SIZE),
+                                            device=device)
+            run_policy_batched(
+                config, episodes,
+                env_factory=lambda h, c: kwargs["env_factory"](h, mc, c),
+                house_factory=kwargs["house_factory"],
+                scorer=scorer, class_index_of=True,
+                detector=build_detector_from_config(config, device),
+                max_concurrent=int(args.batched),
+                pipeline_depth=int(args.pipeline_depth),
+                host_workers=int(args.host_workers),
+                resume=args.resume,
+                gather_timeout=float(args.gather_timeout),
+                progress_every=float(args.progress_every),
+                debug=args.debug,
+                device=device,
+            )
+        else:
+            if args.batched:
+                print("--batched needs SCORE: model and a generated-episode "
+                      "mode (--fake-env/--mesh-env/--workload); running sequentially")
+            run_policy(config, episodes=episodes, debug=args.debug,
+                       visualize_every=1 if args.visualize else 100,
+                       resume=args.resume, start=args.start, device=device, **kwargs)
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-    if args.batched and config.SCORE == "model" and "env_factory" in kwargs:
-        model, mc = load_scoring_model(config, device)
-        scorer = make_multiclass_scorer(model, image_size=int(mc.TPU.IMAGE_SIZE),
-                                        device=device)
-        run_policy_batched(
-            config, episodes,
-            env_factory=lambda h, c: kwargs["env_factory"](h, mc, c),
-            house_factory=kwargs["house_factory"],
-            scorer=scorer, class_index_of=True,
-            detector=build_detector_from_config(config, device),
-            max_concurrent=int(args.batched),
-            pipeline_depth=int(args.pipeline_depth),
-            host_workers=int(args.host_workers),
-            resume=args.resume,
-            gather_timeout=float(args.gather_timeout),
-            progress_every=float(args.progress_every),
-            debug=args.debug,
-            device=device,
-        )
-    else:
-        if args.batched:
-            print("--batched needs SCORE: model and a generated-episode "
-                  "mode (--fake-env/--mesh-env/--workload); running sequentially")
-        run_policy(config, episodes=episodes, debug=args.debug,
-                   visualize_every=1 if args.visualize else 100,
-                   resume=args.resume, start=args.start, device=device, **kwargs)
-    if prof is not None:
-        prof.stop()
-        os.makedirs(config.RESULT_LOCATION, exist_ok=True)
-        path = os.path.join(config.RESULT_LOCATION,
-                            f"{name_from_config(config)}_trace.json")
-        prof.export_chrome_trace(path)
         print(f"profiler trace: {path}")
 
     return display_results(config)

@@ -15,17 +15,27 @@ the head conv at `features.8`, because the reference's `features` is a
 Sequential over the trunk's children; the MLP is `top.{0,2,4}` (or `top`
 for basic). So a reference `.torch` checkpoint loads with strict=True once
 its unused `resnet.fc.*` classifier is dropped.
+
+With `remat` (TPU.REMAT, JAX's nn.remat of the trunk) a forward that
+builds a graph keeps none of the trunk's activations: the backward
+recomputes them (torch.utils.checkpoint, non-reentrant, so that the trunk's
+parameters get gradients from frames that need none), and the
+recomputation leaves the BatchNorm running statistics as the forward left
+them, so a step updates them once, as JAX's does. Forwards without a
+graph run as they would without it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .resnet import ResNet18
+from .resnet import BatchNorm2d, ResNet18
 
 
 def head_hw(image_size: int) -> int:
@@ -37,8 +47,9 @@ def head_hw(image_size: int) -> int:
 class HabitatDQN(nn.Module):
     def __init__(self, action_dim: int = 3, num_classes: int = 5,
                  extra_capacity: bool = False, panorama: bool = True,
-                 image_size: int = 224):
+                 image_size: int = 224, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.action_dim = action_dim
         self.num_classes = num_classes
         self.extra_capacity = extra_capacity
@@ -71,11 +82,37 @@ class HabitatDQN(nn.Module):
         b, f = x.shape[0], x.shape[1]
         # NHWC -> NCHW as a view: a contiguous NHWC tensor is channels_last
         x = x.reshape((b * f,) + x.shape[2:]).permute(0, 3, 1, 2)
-        feats = self.features(x)
+        if self.remat and torch.is_grad_enabled():
+            feats = checkpoint(self._trunk, x, use_reentrant=False,
+                               context_fn=self._remat_contexts)
+            feats = self.features[-1](feats)  # the head conv, or the pool
+        else:
+            feats = self.features(x)
         if self.extra_capacity:
             feats = torch.relu(feats)
         out = self.top(feats.reshape(b, -1))
         return out.float().reshape(b, self.num_classes, self.action_dim)
+
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+        for module in self.features[:-1]:
+            x = module(x)
+        return x
+
+    def _remat_contexts(self):
+        """(the forward's context, the recomputation's): the latter holds
+        the trunk's running statistics still."""
+        return contextlib.nullcontext(), self._statistics_held()
+
+    @contextlib.contextmanager
+    def _statistics_held(self):
+        norms = [m for m in self.resnet.modules() if isinstance(m, BatchNorm2d)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.update_stats = True
 
     def set_train(self, mode: bool = True) -> "HabitatDQN":
         """The reference's set_train(): train mode, except that
@@ -91,17 +128,19 @@ class HabitatDQN(nn.Module):
 def build_qnet(config, image_size: int = 224, device=None) -> HabitatDQN:
     """Mirror of the JAX build_qnet: VALUE_LEARNING/ONE_ACTION collapse to
     a single action head; PANORAMA or PREVIOUS_IMAGES enable 4-frame
-    stacking. Reads those keys and ARCHITECTURE from any attribute object.
-    Returns the model in eval mode, channels_last, on `device` (None: the
-    card)."""
+    stacking; TPU.REMAT recomputes the trunk in the backward. Reads those
+    keys and ARCHITECTURE from any attribute object. Returns the model in
+    eval mode, channels_last, on `device` (None: the card)."""
     device = resolve_device(device)
     actions = 1 if (config.VALUE_LEARNING or config.ONE_ACTION) else 3
+    tpu = getattr(config, "TPU", None)
     model = HabitatDQN(
         action_dim=actions,
         num_classes=5,
         extra_capacity=(config.ARCHITECTURE == "extra_capacity"),
         panorama=bool(config.PANORAMA or config.PREVIOUS_IMAGES),
         image_size=image_size,
+        remat=bool(tpu.REMAT) if tpu is not None else False,
     )
     return model.to(device, memory_format=torch.channels_last).eval()
 

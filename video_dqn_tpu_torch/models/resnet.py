@@ -36,20 +36,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum 0.1, and the running variance moves toward the biased batch
     variance, where nn.BatchNorm2d takes the unbiased one. The batch is
     normalized by its biased statistics in both. Eval mode is
-    nn.BatchNorm2d's."""
+    nn.BatchNorm2d's. With `update_stats` False a train-mode forward
+    leaves the running statistics alone (a checkpointed trunk's
+    recomputation, models/qnet.py)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=(0, 2, 3),
-                                       unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+        if self.update_stats:
+            self._update_running_stats(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    @torch.no_grad()
+    def _update_running_stats(self, x: torch.Tensor) -> None:
+        var, mean = torch.var_mean(x.to(self.running_mean.dtype), dim=(0, 2, 3),
+                                   unbiased=False)
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var, self.momentum)
 
 
 class BasicBlock(nn.Module):

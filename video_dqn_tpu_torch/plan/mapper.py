@@ -128,7 +128,7 @@ class DepthMapperAndPlanner:
         ]
         self._fmm_cache = None
         # the episode's last frame when log_visualization is on
-        # (plan/visualize.py); JAX's captioned stop strip waits for item 8b
+        # (plan/visualize.py), and the last stop's captioned strip
         self.last_frame = None
         self.current_pan = None
         self.current_open = None

@@ -30,6 +30,7 @@ converts to and from the JAX package's TrainState state dict
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import os
@@ -46,6 +47,7 @@ from ..core.prefetch import prefetch_to_device
 from ..core.watchdog import StallWatchdog
 from ..data.device_dataset import DeviceDataset, device_memory_bytes
 from ..data.qlearning import QLearningBatcher
+from ..data.workers import parallel_batches
 from ..models.bridge import (adam_from_optax, adam_to_optax, flax_from_qnet_state_dict,
                              layout, load_torch_state_dict, qnet_state_dict_from_flax)
 from ..models.qnet import HabitatDQN, build_qnet, init_qnet
@@ -263,11 +265,9 @@ def make_train_step(model: HabitatDQN, config) -> Callable:
 def _refuse_unported(config) -> None:
     tpu = config.TPU
     unported = [name for name, on in (
-        ("TPU.DECODE_WORKERS > 0 (decode workers)", int(tpu.DECODE_WORKERS) > 0),
         ("TPU.SHARD_DATASET (the sharded frame table)", bool(tpu.SHARD_DATASET)),
         ("TPU.MESH_DATA / TPU.MESH_MODEL other than -1 or 1 / 1 (a device mesh)",
          int(tpu.MESH_DATA) not in (-1, 1) or int(tpu.MESH_MODEL) != 1),
-        ("TPU.REMAT (trunk recomputation)", bool(tpu.REMAT)),
     ) if on]
     if unported:
         raise NotImplementedError(
@@ -330,71 +330,85 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
     (`stall_watchdog`) every step. A `visualize_hook(model, state,
     sample_number)` runs after each checkpoint is written (the training
     CLI passes one when VISUALIZATION_DATA_ROOT is set, as in the JAX
-    package)."""
+    package). With TPU.DECODE_WORKERS > 0, host-fed and without a
+    `batcher`, the batches come from that many decode processes
+    (data/workers.py parallel_batches, forked here before the model
+    reaches the card); the device dataset decodes once and ignores the
+    key, as the JAX package does."""
     device = resolve_device(device)
     _refuse_unported(config)
+    stream = None
     if batcher is None:
         batcher = batcher_from_config(config)
-    batch_size = int(config.TPU.BATCH_SIZE)
-    state = create_train_state(config, device)
+        workers = int(config.TPU.DECODE_WORKERS)
+        if workers > 0 and config.TPU.DEVICE_DATASET:
+            print(f"TPU.DECODE_WORKERS: {workers} ignored: the device dataset decodes "
+                  "its frames once, in this process")
+        elif workers > 0:
+            stream = parallel_batches(batcher, int(config.TPU.BATCH_SIZE),
+                                      num_workers=workers, seed=int(config.SEED))
+            print(f"Decode workers: {workers}")
+    with stream if stream is not None else contextlib.nullcontext():
+        batch_size = int(config.TPU.BATCH_SIZE)
+        state = create_train_state(config, device)
 
-    start_step = 0
-    if resume_from > -1:
-        load_flax_state_dict(state, restore_checkpoint(config.models_dir, resume_from))
-        start_step = resume_from
-        print(f"Resuming from sample{resume_from}")
-    elif config.BOOTSTRAP:
-        boot = config.BOOTSTRAP_LOCATION
-        step = latest_checkpoint_step(boot)
-        if step is not None:
-            # the reference's BOOTSTRAP: the weights load, the loop
-            # counter starts fresh and the target is re-synced
-            load_flax_state_dict(state, restore_checkpoint(boot, step))
-            state.step = 0
-            sync_target(state)
-            print(f"BOOTSTRAP from {boot}/sample{step}")
+        start_step = 0
+        if resume_from > -1:
+            load_flax_state_dict(state, restore_checkpoint(config.models_dir, resume_from))
+            start_step = resume_from
+            print(f"Resuming from sample{resume_from}")
+        elif config.BOOTSTRAP:
+            boot = config.BOOTSTRAP_LOCATION
+            step = latest_checkpoint_step(boot)
+            if step is not None:
+                # the reference's BOOTSTRAP: the weights load, the loop
+                # counter starts fresh and the target is re-synced
+                load_flax_state_dict(state, restore_checkpoint(boot, step))
+                state.step = 0
+                sync_target(state)
+                print(f"BOOTSTRAP from {boot}/sample{step}")
 
-    num_steps = int(max_steps if max_steps is not None else config.NUM_STEPS)
-    step_fn = make_train_step(state.model, config)
-    if config.TPU.DEVICE_DATASET:
-        t0 = time.perf_counter()
-        dds = DeviceDataset(batcher.tables(device_memory_bytes(device)), batch_size,
-                            seed=int(config.SEED),
-                            sampling=str(config.TPU.DEVICE_SAMPLING), device=device)
-        print(f"Device dataset: {dds.n} rows, {dds.bytes / 1e9:.2f} GB of frames on "
-              f"{device}, built in {time.perf_counter() - t0:.2f} s; one step per dispatch "
-              f"(TPU.SCAN_CHUNK has no counterpart yet)")
-        batches = dds.batches(state.step)
-    else:
-        batches = prefetch_to_device(batcher.batches(batch_size), device,
-                                     depth=int(config.TPU.PREFETCH_DEPTH))
+        num_steps = int(max_steps if max_steps is not None else config.NUM_STEPS)
+        step_fn = make_train_step(state.model, config)
+        if config.TPU.DEVICE_DATASET:
+            t0 = time.perf_counter()
+            dds = DeviceDataset(batcher.tables(device_memory_bytes(device)), batch_size,
+                                seed=int(config.SEED),
+                                sampling=str(config.TPU.DEVICE_SAMPLING), device=device)
+            print(f"Device dataset: {dds.n} rows, {dds.bytes / 1e9:.2f} GB of frames on "
+                  f"{device}, built in {time.perf_counter() - t0:.2f} s; one step per dispatch "
+                  f"(TPU.SCAN_CHUNK has no counterpart yet)")
+            batches = dds.batches(state.step)
+        else:
+            source = stream if stream is not None else batcher.batches(batch_size)
+            batches = prefetch_to_device(source, device, depth=int(config.TPU.PREFETCH_DEPTH))
 
-    sample_number = start_step
-    running_loss = None
-    watchdog = stall_watchdog(config, device)
-    t0 = time.time()
-    try:
-        for batch in itertools.islice(batches, max(num_steps - start_step, 0)):
-            metrics = step_fn(state, batch)
-            sample_number += 1
+        sample_number = start_step
+        running_loss = None
+        watchdog = stall_watchdog(config, device)
+        t0 = time.time()
+        try:
+            for batch in itertools.islice(batches, max(num_steps - start_step, 0)):
+                metrics = step_fn(state, batch)
+                sample_number += 1
+                if watchdog is not None:
+                    watchdog.beat()
+                # the EMA stays on the device; the host reads it only here
+                if sample_number % log_every == 0:
+                    running_loss = float(metrics["ema_loss"])
+                    config.writer.add_scalar("avg_q_loss/train", running_loss, sample_number)
+                    config.writer.add_scalar("frames_per_sec/train",
+                                             log_every * batch_size / (time.time() - t0),
+                                             sample_number)
+                    t0 = time.time()
+                if sample_number % int(config.CHECKPOINT_INTERVAL) == 0:
+                    save_checkpoint(config.models_dir, sample_number, flax_state_dict(state))
+                    if visualize_hook is not None:
+                        visualize_hook(state.model, state, sample_number)
+                        if watchdog is not None:
+                            watchdog.beat()
+        finally:
             if watchdog is not None:
-                watchdog.beat()
-            # the EMA stays on the device; the host reads it only here
-            if sample_number % log_every == 0:
-                running_loss = float(metrics["ema_loss"])
-                config.writer.add_scalar("avg_q_loss/train", running_loss, sample_number)
-                config.writer.add_scalar("frames_per_sec/train",
-                                         log_every * batch_size / (time.time() - t0),
-                                         sample_number)
-                t0 = time.time()
-            if sample_number % int(config.CHECKPOINT_INTERVAL) == 0:
-                save_checkpoint(config.models_dir, sample_number, flax_state_dict(state))
-                if visualize_hook is not None:
-                    visualize_hook(state.model, state, sample_number)
-                    if watchdog is not None:
-                        watchdog.beat()
-    finally:
-        if watchdog is not None:
-            watchdog.stop()
-        batches.close()
-    return state, running_loss
+                watchdog.stop()
+            batches.close()
+        return state, running_loss

@@ -9,9 +9,9 @@ fake env. With --analysis, runs the value/distance analysis
 (viz/panorama.py vis_panorama) at the fake env's start, each class given
 one sampled reachable goal, scoring with the Q-net of --model-config (its
 latest checkpoint) or else a seeded extra_capacity net, prints
-`corr[<class>] = ...` for each class and writes the figure without text
-(the strip over one Wistia value row a class; the numbers and labels
-wait for ROADMAP.md queue 1 item 8b).
+`corr[<class>] = ...` for each class and writes the figure (the strip
+over one Wistia value row a class, each cell's value in it, each row's
+`<class> r=...` label in a left margin).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Visualisation without text (counterpart of video_dqn_tpu/viz): value
-maps over pre-rendered grids, the grid renderer, panorama strips and the
+"""Visualisation (counterpart of video_dqn_tpu/viz): value maps over
+pre-rendered grids, the grid renderer, captioned panorama strips and the
 value/distance analysis. Images are uint8 numpy arrays, written by
-data/png.py; the captions are ROADMAP.md queue 1 item 8b."""
+data/png.py; text is drawn by viz/text.py."""
 
 from .panorama import join_images, panorama_strip
 from .render_grid import render_grid
