@@ -214,7 +214,31 @@ prints no result line):
      labels those of the rows np.random.default_rng(SEED) draws, no worker
      alive after it; (d) make_synthetic_dataset at its defaults, then 10
      steps of the training CLI on it, losses finite;
-  16. a JSON line of every ported kernel, then the result line.
+  16. the fleet path (the card's machine has one H100; semantics across
+     ranks are held on the CPU by tests/test_torch_parallel*.py): (a) the
+     training CLI's fleet form (--coordinator 127.0.0.1:<free port>
+     --num-processes 1 --process-id 0 --multihost-platform native), one
+     NCCL rank in this process, the published config with TPU.MESH_DATA
+     -1 and TPU.SHARD_DATASET true on phase 5's synthetic tables in device
+     mode, B = 256, bf16, 30 steps and a checkpoint at 30: each step's
+     loss within twice the spread of phase 5's two device-mode runs (plus
+     1e-5 of the loss) of phase 5's, two identity launches a step, the
+     checkpoint written once and loading into a plain TrainState equal to
+     the run's, the process group gone after; every other CLI call of
+     the script names cuda:0, since with no device the train and evaluate
+     CLIs take every card of a machine of several; (b) step 5 profiled:
+     the host's NCCL ops (at least the gradients' all-reduce, an in-place
+     sum that enqueues nothing on the card at one rank), and the
+     checkpoint's gather profiled: at least one device-side nccl range
+     with the kernels or copies NCCL ran in it; ms/step over steps 11-30
+     against phase 5's; (c) the basic arch, float32, B = 32, 2 steps, through the fleet
+     form (BatchNorm synced over a data group of one) and plainly, the
+     running statistics within 1e-5 + 1e-4·|x|; (d) with two cards or
+     more only, the CLI spawning N x 1 and (N/2) x 2 fleets against one
+     card (tools/fleet_cards.py: each step's loss and the step-30 update
+     within twice a float32 one-card run's distance from the bf16 one;
+     printed as not run on one card);
+  17. a JSON line of every ported kernel, then the result line.
 Phase 1 also prints the libav* and NVDEC libraries `ldconfig -p` lists and
 whether libnvcuvid.so.1 loads (it does, but the card's NVDEC engines are
 not exposed there, which is why the port decodes on the host).
@@ -285,10 +309,13 @@ from video_dqn_tpu_torch.models.detector.inference import TorchDetector, load_de
 from video_dqn_tpu_torch.models.detector.maskrcnn import BOX_WEIGHTS, STRIDES, MaskRCNN
 from video_dqn_tpu_torch.models.detector.roi_align import multilevel_roi_align
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
+from video_dqn_tpu_torch.models.resnet import BatchNorm2d
 from video_dqn_tpu_torch.ops import nv12 as nv12_mod
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
 from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
+from video_dqn_tpu_torch.parallel import multihost
+from video_dqn_tpu_torch.tools import fleet_cards
 from video_dqn_tpu_torch.plan import mapper as mapper_mod
 from video_dqn_tpu_torch.plan.mapper import DepthMapperAndPlanner
 from video_dqn_tpu_torch.sim import meshgen
@@ -316,6 +343,9 @@ import torch_video_fixture as vfix  # noqa: E402  (phase 14's videos and their o
 
 SEED = 4
 IMAGE_SIZE = 224
+# the card of every CLI call that expects one rank: named, since with no
+# device the train and evaluate CLIs take every card of a machine of several
+ONE_CARD = fleet_cards.ONE_CARD
 # H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -1009,6 +1039,9 @@ def _yaml(tree: dict, indent: str = "") -> list:
     for k, v in tree.items():
         if isinstance(v, dict):
             lines += [f"{indent}{k}:"] + _yaml(v, indent + "  ")
+        elif isinstance(v, float) and "e" in repr(v) and "." not in repr(v):
+            # YAML reads 1e-07 as a string; 1.0e-07 is a float
+            lines.append(f"{indent}{k}: " + repr(v).replace("e", ".0e"))
         else:
             lines.append(f"{indent}{k}: " + (f"'{v}'" if isinstance(v, str) else repr(v)))
     return lines
@@ -1029,14 +1062,42 @@ def experiment(folder: Path, **over) -> ExperimentConfig:
     return ExperimentConfig(write_experiment(folder, **over))
 
 
-class TrainSpy:
-    """Watches one run_train without changing it: the kernel launches of
-    each step, the rows DeviceDataset draws for each step, and a copy of
-    the online net's state dict at each target sync (taken before the
-    sync, so it is the online net before that step's update)."""
+class LossTrace:
+    """Keeps each step's loss (a device tensor, read after the run) of the
+    run_train calls inside it, without a synchronize."""
 
     def __enter__(self):
-        self.steps, self.rows, self.syncs = [], {}, []
+        self.losses = []
+        self._saved = dqn.make_train_step
+        make = self._saved
+
+        def make_traced(model, config):
+            step_fn = make(model, config)
+
+            def traced(state, batch, mark=None):
+                out = step_fn(state, batch, mark)
+                self.losses.append(out["loss"])
+                return out
+            return traced
+
+        dqn.make_train_step = make_traced
+        return self
+
+    def __exit__(self, *exc):
+        dqn.make_train_step = self._saved
+
+    def values(self) -> list:
+        return torch.stack(self.losses).tolist() if self.losses else []
+
+
+class TrainSpy:
+    """Watches one run_train without changing it: the kernel launches and
+    the loss of each step, the rows DeviceDataset draws for each step, and
+    a copy of the online net's state dict at each target sync (taken
+    before the sync, so it is the online net before that step's update)."""
+
+    def __enter__(self):
+        self.steps, self.rows, self.syncs, self.losses = [], {}, [], []
         self._saved = dqn.make_train_step, dqn.sync_target, DeviceDataset.rows
         make, sync, rows = self._saved
 
@@ -1047,6 +1108,7 @@ class TrainSpy:
                 before = rn.LAUNCHES.copy()
                 out = step_fn(state, batch, mark)
                 self.steps.append(dict(rn.LAUNCHES - before))
+                self.losses.append(out["loss"])
                 return out
             return spied
 
@@ -1122,7 +1184,8 @@ def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
     mode = {"TPU": {"DEVICE_DATASET": device_dataset}}
     timing = experiment(tmp / f"{name}_timing",
                         **{**TRAIN_CUTS, **mode, "CHECKPOINT_INTERVAL": 10 ** 6})
-    dqn.run_train(timing, batcher=TableSource(tables, seed=SEED), log_every=TRAIN_LOG_EVERY)
+    with LossTrace() as timing_losses:
+        dqn.run_train(timing, batcher=TableSource(tables, seed=SEED), log_every=TRAIN_LOG_EVERY)
     rate = steady_rate(timing)
 
     config = experiment(tmp / name, **TRAIN_CUTS, **mode)
@@ -1160,7 +1223,8 @@ def train_run(tmp: Path, name: str, tables, device_dataset: bool) -> dict:
         f"before the update after the syncs at {[k for k, _ in spy.syncs]}; {names}")
     return {"config": config, "state": state, "spy": spy, "launches": launches,
             "ema_loss": float(state.ema_loss), "rate": rate, "peak_gib": peak,
-            "losses": losses}
+            "losses": losses, "step_losses": torch.stack(spy.losses).tolist(),
+            "timing_step_losses": timing_losses.values()}
 
 
 def _leaves(tree):
@@ -1334,7 +1398,8 @@ def train_path() -> dict:
     return {"launches": launches,
             "modes": {m["config"].folder.rsplit("/", 1)[-1]: {
                 "ms_per_step": m["rate"]["ms_per_step"], "frames_per_s": m["rate"]["frames_per_s"],
-                "peak_gib": m["peak_gib"], "ema_loss": m["ema_loss"], "logged": m["losses"]}
+                "peak_gib": m["peak_gib"], "ema_loss": m["ema_loss"], "logged": m["losses"],
+                "step_losses": m["step_losses"], "timing_step_losses": m["timing_step_losses"]}
                 for m in (device, host)},
             "resume": resume, "precision": precision, "breakdown": breakdown,
             "card_vs_cpu": cpu}
@@ -1411,7 +1476,7 @@ def real_data_run(tmp: Path, name: str, device_dataset: bool) -> dict:
             "TPU": {"DEVICE_DATASET": device_dataset}}
     every = ["--log-every", str(TRAIN_LOG_EVERY)]
     timing = write_experiment(tmp / f"{name}_timing", **{**cuts, "CHECKPOINT_INTERVAL": 10 ** 6})
-    train_q_network.main([timing, *every])
+    train_q_network.main([timing, *every], device=ONE_CARD)
     rate = steady_rate(ExperimentConfig(timing, resume=True))
 
     folder = write_experiment(tmp / name, **cuts)
@@ -1419,7 +1484,7 @@ def real_data_run(tmp: Path, name: str, device_dataset: bool) -> dict:
     rn.LAUNCHES.clear()
     t0 = time.perf_counter()
     with TrainSpy() as spy:
-        state, loss = train_q_network.main([folder, *every])
+        state, loss = train_q_network.main([folder, *every], device=ONE_CARD)
     wall = time.perf_counter() - t0
     launches = dict(rn.LAUNCHES)
     steps = TRAIN_CUTS["NUM_STEPS"]
@@ -1440,7 +1505,7 @@ def real_data_resume(first: dict) -> dict:
     os.remove(Path(first["folder"]) / "models" / f"sample{TRAIN_CUTS['NUM_STEPS']}.ckpt")
     with TrainSpy() as spy:
         state, _ = train_q_network.main(["-r", first["folder"], "--log-every",
-                                         str(TRAIN_LOG_EVERY)])
+                                         str(TRAIN_LOG_EVERY)], device=ONE_CARD)
     return check_resume("[real] -r:", spy, first, float(state.ema_loss))
 
 
@@ -1491,8 +1556,8 @@ class InverseSpy:
         self._saved = inverse.make_inverse_step
         make = self._saved
 
-        def make_spied(model, dtype=torch.bfloat16):
-            step_fn = make(model, dtype)
+        def make_spied(model, dtype=torch.bfloat16, mesh=None):
+            step_fn = make(model, dtype, mesh)
 
             def spied(state, batch, dropout_mask=None, mark=None):
                 before = rn.LAUNCHES.copy()
@@ -2106,7 +2171,7 @@ def eval_cli(config_path: str, episodes: int, in_flight: int, *flags: str) -> fl
     with contextlib.redirect_stdout(io.StringIO()) as out:
         mean = evaluate_cli.main([config_path, "--workload", str(episodes), "--batched",
                                   str(in_flight), "--pipeline-depth", str(EVAL_PIPELINE),
-                                  *flags])
+                                  *flags], device=ONE_CARD)
     if mean is None or not 0.0 <= mean <= 1.0:
         raise AssertionError(f"evaluate CLI: mean SPL {mean}\n{out.getvalue()[-2000:]}")
     return mean
@@ -2339,7 +2404,7 @@ def mesh_scene_check(tmp: Path) -> dict:
                                           "VIDEO_LOCATION": str(tmp / "videos_scene")})) + "\n")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as text:
-        mean = evaluate_cli.main(["--mesh-scene", str(scene), str(cfg_path)])
+        mean = evaluate_cli.main(["--mesh-scene", str(scene), str(cfg_path)], device=ONE_CARD)
     seconds = time.perf_counter() - t0
     results = DiskReader(str(tmp / "results_scene" / name_from_config(
         load_file(str(cfg_path))))).data()
@@ -3322,7 +3387,7 @@ def sim_loop(tmp: Path) -> dict:
     rn.LAUNCHES.clear()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        state, _ = train_q_network.main([folder, "--log-every", "5"])
+        state, _ = train_q_network.main([folder, "--log-every", "5"], device=ONE_CARD)
     q_s = time.perf_counter() - t0
     q_launches = dict(rn.LAUNCHES)
     losses = [r["value"] for r in read_metrics(ExperimentConfig(folder, resume=True).run_dir,
@@ -3717,7 +3782,7 @@ def hook_check(tmp: Path, root: Path) -> dict:
     rn.LAUNCHES.clear()
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            train_q_network.main([folder, "--log-every", "5"])
+            train_q_network.main([folder, "--log-every", "5"], device=ONE_CARD)
     finally:
         train_q_network.value_map_hook = saved
     after = dict(rn.LAUNCHES)  # what ran after the hook: nothing
@@ -4080,7 +4145,7 @@ t_ready = time.perf_counter()
 print("ready", flush=True)
 folder = sys.stdin.readline().strip()
 t_go = time.perf_counter()
-train_q_network.main([folder, "--log-every", sys.argv[1]])
+train_q_network.main([folder, "--log-every", sys.argv[1]], device="cuda:0")
 t_end = time.perf_counter()
 (batcher, batch_size, kw, stream), = streams
 rng = np.random.default_rng(kw["seed"])
@@ -4362,7 +4427,8 @@ def worker_runs(tmp: Path, runner: WorkerRunner) -> dict:
         else:
             rn.LAUNCHES.clear()
             with contextlib.redirect_stdout(io.StringIO()):
-                train_q_network.main([folder, "--log-every", str(TRAIN_LOG_EVERY)])
+                train_q_network.main([folder, "--log-every", str(TRAIN_LOG_EVERY)],
+                                     device=ONE_CARD)
             launches = rn.LAUNCHES[("identity", "bfloat16")]
             if dict(rn.LAUNCHES) != {("identity", "bfloat16"): 2 * steps}:
                 raise AssertionError(f"0 decode workers: launches {dict(rn.LAUNCHES)}")
@@ -4400,7 +4466,7 @@ def synthetic_run(tmp: Path) -> dict:
                               DATASET=feather, TPU={"BATCH_SIZE": SYNTH_BATCH, "DEVICE_DATASET": False})
     rn.LAUNCHES.clear()
     with contextlib.redirect_stdout(io.StringIO()):
-        train_q_network.main([folder, "--log-every", "5"])
+        train_q_network.main([folder, "--log-every", "5"], device=ONE_CARD)
     launches = dict(rn.LAUNCHES)
     losses = [r["value"] for r in read_metrics(ExperimentConfig(folder, resume=True).run_dir,
                                                "avg_q_loss/train")]
@@ -4447,8 +4513,290 @@ def rest_path() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+# The fleet path on the card: the training CLI's fleet flags over NCCL. The
+# card's machine has one H100, so the group has one rank: the collectives,
+# the process group and the CLI run on the card, and the semantics across
+# ranks are held on the CPU (tests/test_torch_parallel*.py).
+PARALLEL_PROFILED_STEP = 5   # the profiled step, inside the first log window (not timed)
+# the fleet run's per-step loss against phase 5's device-mode run: within
+# this many times the largest spread of phase 5's two plain runs of the
+# same config and seed (its timing run and its counted run), plus this
+# share of the loss
+PARALLEL_SPREAD_FACTOR, PARALLEL_LOSS_RTOL = 2.0, 1e-5
+PARALLEL_BASIC_BATCH, PARALLEL_BASIC_STEPS = 32, 2
+# (c)'s learning rate: Adam's first step moves a parameter by +-lr whatever
+# its gradient's size, so where two runs' reductions differ in order a
+# gradient below float32 noise moves it 2 lr apart, and the second forward's
+# statistics part by ~1e-4 at the published 1e-4 (seen on the CPU at 96 px).
+# At 1e-7 both second forwards see the same parameters up to rounding and
+# the statistics compare the BatchNorm paths alone.
+PARALLEL_BASIC_LR = 1e-7
+
+
+def profiled(fn, path: Path, *args) -> tuple:
+    """fn(*args) under torch.profiler, the card synchronized on both sides;
+    (its result, the chrome trace's events, exported to `path` and read
+    back)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    return out, json.loads(path.read_text())["traceEvents"]
+
+
+class FleetSpy:
+    """Inside the CLI's run: each step's loss, the identity launches of
+    every step, and torch.profiler traces of step PARALLEL_PROFILED_STEP
+    and of the checkpoint's gather (flax_state_dict), read back by name
+    and category."""
+
+    def __init__(self, trace_path: Path):
+        self.trace_path = trace_path
+
+    def __enter__(self):
+        self.losses, self.steps, self.trace, self.tree_trace = [], [], None, None
+        self._saved = dqn.make_train_step, dqn.flax_state_dict
+        make, tree_fn = self._saved
+
+        def make_spied(model, config):
+            step_fn = make(model, config)
+
+            def spied(state, batch, mark=None):
+                before = rn.LAUNCHES.copy()
+                if len(self.losses) + 1 == PARALLEL_PROFILED_STEP:
+                    out, self.trace = profiled(step_fn, self.trace_path, state, batch, mark)
+                else:
+                    out = step_fn(state, batch, mark)
+                self.steps.append(dict(rn.LAUNCHES - before))
+                self.losses.append(out["loss"])
+                return out
+            return spied
+
+        def tree_spied(state):
+            out, self.tree_trace = profiled(
+                tree_fn, self.trace_path.with_name("fleet_checkpoint.json"), state)
+            return out
+
+        dqn.make_train_step, dqn.flax_state_dict = make_spied, tree_spied
+        return self
+
+    def __exit__(self, *exc):
+        dqn.make_train_step, dqn.flax_state_dict = self._saved
+
+
+class table_batcher:
+    """The CLI's data source: `tables` for the config's DATASET."""
+
+    def __init__(self, tables):
+        self.tables = tables
+
+    def __enter__(self):
+        self.saved = dqn.batcher_from_config
+        dqn.batcher_from_config = lambda config: TableSource(self.tables, seed=SEED)
+
+    def __exit__(self, *exc):
+        dqn.batcher_from_config = self.saved
+
+
+def fleet_cli(folder: str, *flags: str):
+    """The training CLI in its fleet form: one process of the fleet, its
+    one rank on the card, NCCL over a free localhost port. The launcher
+    leaves the process group when the run ends."""
+    args = ["--coordinator", f"127.0.0.1:{multihost.free_port()}", "--num-processes", "1",
+            "--process-id", "0", "--multihost-platform", "native", folder, *flags]
+    out = train_q_network.main(args, device=ONE_CARD)
+    if torch.distributed.is_initialized():
+        raise AssertionError("the fleet run left its process group up")
+    return out
+
+
+def nccl_events(trace: list) -> dict:
+    """A profile's collectives, from its chrome trace: the host's
+    ProcessGroupNCCL ops (`nccl:<collective>`), the device-side ranges it
+    records around the work a collective enqueues on the card, and that
+    work: the kernels and copies on a range's stream inside its span (at
+    one rank NCCL's own kernel is `oneRankReduce` and a gather is a copy,
+    so no name test finds them)."""
+    spans = [e for e in trace if e.get("ph") == "X"]
+
+    def named(e):
+        return str(e.get("name", "")).startswith("nccl")
+
+    ranges = [e for e in spans if named(e) and e.get("cat") == "gpu_user_annotation"]
+    work = [e for e in spans if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and
+            any(e.get("pid") == r.get("pid") and e.get("tid") == r.get("tid") and
+                r["ts"] - 1 <= e["ts"] and e["ts"] + e.get("dur", 0) <= r["ts"] + r["dur"] + 1
+                for r in ranges)]
+    return {"host_nccl_ops": sum(1 for e in spans if named(e) and e.get("cat") in
+                                 ("cpu_op", "user_annotation")),
+            "device_nccl_ranges": len(ranges),
+            "device_nccl_work": len(work),
+            "device_nccl_work_names": sorted({str(e["name"])[:60] for e in work}),
+            "kernels": sum(1 for e in spans if e.get("cat") == "kernel"),
+            "names": sorted({e["name"] for e in spans if named(e)})}
+
+
+def fleet_run(tmp: Path, tables, phase5: dict) -> dict:
+    """Phase 16 (a) and (b): the published config (B = 256, bf16) with
+    TPU.MESH_DATA -1 and TPU.SHARD_DATASET true, 30 steps on phase 5's
+    synthetic tables through the device table, a checkpoint at step 30,
+    through the CLI's fleet form. Each step's loss against phase 5's
+    device-mode run within the spread of phase 5's own two runs; two
+    identity launches a step; the checkpoint written once, loaded into a
+    plain TrainState equal to the run's; the profiled step's NCCL
+    collectives (the step's in-place sum enqueues nothing on the card at
+    one rank) and the checkpoint gather's, which must run on the card;
+    ms/step over steps 11-30 against phase 5's."""
+    steps = TRAIN_CUTS["NUM_STEPS"]
+    folder = write_experiment(tmp / "fleet", **{**TRAIN_CUTS, "CHECKPOINT_INTERVAL": steps},
+                              TPU={"DEVICE_DATASET": True, "SHARD_DATASET": True,
+                                   "MESH_DATA": -1})
+    rn.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with FleetSpy(tmp / "fleet_step.json") as spy, table_batcher(tables), \
+            contextlib.redirect_stdout(io.StringIO()) as said:
+        state, _ = fleet_cli(folder, "--log-every", str(TRAIN_LOG_EVERY))
+    wall = time.perf_counter() - t0
+    config = ExperimentConfig(folder, resume=True)
+    rate = steady_rate(config)
+    fleet = torch.stack(spy.losses).tolist()
+    plain_a, plain_b = phase5["timing_step_losses"], phase5["step_losses"]
+    spread = max(abs(a - b) for a, b in zip(plain_a, plain_b))
+    worst = max(abs(f - b) - (PARALLEL_SPREAD_FACTOR * spread + PARALLEL_LOSS_RTOL * abs(b))
+                for f, b in zip(fleet, plain_b))
+    diff = max(abs(f - b) for f, b in zip(fleet, plain_b))
+    names = sorted(os.listdir(config.models_dir))
+    plain = dqn.create_train_state(config)
+    dqn.load_flax_state_dict(plain, restore_checkpoint(config.models_dir, steps))
+    loaded = all(torch.equal(a, b) for a, b in zip(plain.model.state_dict().values(),
+                                                  state.model.state_dict().values()))
+    want = {("identity", "bfloat16"): 2}
+    nccl = nccl_events(spy.trace or [])
+    gather = nccl_events(spy.tree_trace or [])
+    mesh_line = [line for line in said.getvalue().splitlines() if "Device dataset" in line]
+    log(f"[parallel] (a) the training CLI's fleet form (--coordinator 127.0.0.1:<port> "
+        f"--num-processes 1 --process-id 0 --multihost-platform native), NCCL world size "
+        f"{state.mesh.size}, mesh {state.mesh.data}x{state.mesh.model}; {mesh_line}; {steps} "
+        f"steps in {wall:.2f} s; loss against phase 5's device-mode run: largest |diff| "
+        f"{diff:.3g}; phase 5's two plain runs' spread {spread:.3g}; limit "
+        f"{PARALLEL_SPREAD_FACTOR} x spread + {PARALLEL_LOSS_RTOL} x |loss| (worst margin "
+        f"{worst:.3g}); checkpoints {names}, sample{steps} loads into a plain TrainState "
+        f"{'equal to' if loaded else 'UNLIKE'} the run's")
+    log(f"[parallel] (b) step {PARALLEL_PROFILED_STEP}, profiled: host NCCL ops "
+        f"{nccl['host_nccl_ops']} ({nccl['names']}), device-side nccl ranges "
+        f"{nccl['device_nccl_ranges']}, work in them {nccl['device_nccl_work']} (an in-place "
+        f"sum over one rank enqueues nothing on the card), {nccl['kernels']} kernels; the "
+        f"checkpoint's gather at step {steps}, profiled: host NCCL ops "
+        f"{gather['host_nccl_ops']}, device-side nccl ranges {gather['device_nccl_ranges']} "
+        f"({gather['names']}), kernels and copies in them {gather['device_nccl_work']} "
+        f"({gather['device_nccl_work_names']}); fleet {rate['ms_per_step']:.4f} ms/step over "
+        f"steps 11-30 against phase 5's {phase5['ms_per_step']:.4f} "
+        f"(x{rate['ms_per_step'] / phase5['ms_per_step']:.4f})")
+    if len(fleet) != steps or worst > 0 or not np.all(np.isfinite(fleet)) or \
+            any(d != want for d in spy.steps) or names != [f"sample{steps}.ckpt"] or \
+            not loaded or spy.trace is None or nccl["host_nccl_ops"] < 1 or \
+            gather["device_nccl_ranges"] < 1 or gather["device_nccl_work"] < 1 or \
+            state.mesh.data_group is None:
+        raise AssertionError(f"fleet run: losses {fleet} vs {plain_b} (spread {spread}), "
+                             f"launches {spy.steps}, checkpoints {names}, loaded {loaded}, "
+                             f"NCCL {nccl}, the gather's {gather}, mesh {state.mesh}")
+    return {"steps": steps, "wall_s": wall, "ms_per_step": rate["ms_per_step"],
+            "frames_per_s": rate["frames_per_s"], "plain_ms_per_step": phase5["ms_per_step"],
+            "loss_max_abs_diff": diff, "plain_spread": spread, "nccl": nccl,
+            "checkpoint_nccl": gather,
+            "world_size": state.mesh.size, "identity": 2 * steps}
+
+
+def fleet_basic(tmp: Path, tables) -> dict:
+    """Phase 16 (c): the basic arch, float32, B = 32, 2 steps, deterministic
+    cuDNN without TF32, through the CLI's fleet form (its BatchNorm's
+    all-reduce over a data group of one) and plainly: the running
+    statistics within BN_RTOL, BN_ATOL of each other."""
+    runs = {}
+    with no_tf32(), cudnn_deterministic(), table_batcher(tables), \
+            contextlib.redirect_stdout(io.StringIO()):
+        for fleet in (True, False):
+            folder = write_experiment(
+                tmp / f"basic_{'fleet' if fleet else 'plain'}",
+                **{**TRAIN_CUTS, "NUM_STEPS": PARALLEL_BASIC_STEPS, "CHECKPOINT_INTERVAL": 10 ** 6},
+                ARCHITECTURE="basic", LEARNING_RATE=PARALLEL_BASIC_LR,
+                TPU={"DEVICE_DATASET": True, "COMPUTE_DTYPE": "float32",
+                     "BATCH_SIZE": PARALLEL_BASIC_BATCH})
+            rn.LAUNCHES.clear()
+            args = [folder, "--log-every", "1"]
+            state, _ = fleet_cli(*args) if fleet else train_q_network.main(args,
+                                                                           device=ONE_CARD)
+            synced = [m.sync is not None for m in state.model.modules()
+                      if isinstance(m, BatchNorm2d)]
+            runs[fleet] = ({k: v.detach().clone() for k, v in state.model.state_dict().items()
+                            if "running" in k}, dict(rn.LAUNCHES), synced)
+            del state
+    stats = {f: r[0] for f, r in runs.items()}
+    worst = max(float(((stats[True][k].double() - stats[False][k].double()).abs()
+                       - BN_ATOL - BN_RTOL * stats[False][k].double().abs()).max())
+                for k in stats[False])
+    moved = float(stats[True]["resnet.bn1.running_mean"].abs().sum())
+    log(f"[parallel] (c) basic, float32, B = {PARALLEL_BASIC_BATCH}, {PARALLEL_BASIC_STEPS} "
+        f"steps: the fleet form's BatchNorm synced over a data group of 1 in "
+        f"{sum(runs[True][2])} of {len(runs[True][2])} layers; its {len(stats[True])} running "
+        f"statistics against the plain CLI's: worst margin {worst:.3g} (rtol {BN_RTOL}, atol "
+        f"{BN_ATOL}); launches {runs[True][1]}")
+    if not all(runs[True][2]) or any(runs[False][2]) or worst > 0 or not moved > 0 or \
+            stats[True].keys() != stats[False].keys():
+        raise AssertionError(f"basic fleet: synced {runs[True][2]} / plain {runs[False][2]}, "
+                             f"statistics beyond the rule by {worst}, moved {moved}")
+    return {"bn_margin": worst,
+            "launches": {f"{path}/{dtype}": n for (path, dtype), n in runs[True][1].items()},
+            "identity": sum(n for (path, _), n in runs[True][1].items() if path == "identity")}
+
+
+def multi_card(tmp: Path) -> dict:
+    """Phase 16 (d), with two cards or more only: the CLI without
+    --coordinator spawns one rank a card, N x 1 and (N/2) x 2, against one
+    card on the committed fixture's data.feather
+    (video_dqn_tpu_torch/tools/fleet_cards.py: each step's loss and the
+    step-30 update within twice the distance of a float32 one-card run from
+    the bf16 one, ms/step of each)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[parallel] (d) not run: {n} card on this machine; the N x 1 and (N/2) x 2 "
+            "fleets need two cards or more")
+        return {"run": False, "cards": n}
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        out = fleet_cards.compare(tmp / "cards", torch_qdata.FEATHER)
+    for line in said.getvalue().splitlines():
+        if line.startswith("[fleet]"):
+            log(f"[parallel] (d) {line}")
+    return {"run": True, **out}
+
+
+def parallel_path(phase5: dict) -> dict:
+    """Phase 16: the training CLI's fleet form over NCCL on the card, (a)
+    the published config against phase 5, (b) its NCCL collectives and
+    ms/step, (c) basic's synced BatchNorm, (d) more cards where there are
+    any. launches: the identity launches of (a) and of (c)'s fleet run."""
+    t0 = time.perf_counter()
+    tables = synthetic_video_tables(TRAIN_FRAMES, TRAIN_ROWS, IMAGE_SIZE, seed=SEED)
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        out = {"fleet": fleet_run(tmp, tables, phase5["modes"]["device_dataset"]),
+               "basic": fleet_basic(tmp, tables)}
+        del tables
+        gc_cuda()
+        out["multi_card"] = multi_card(tmp)
+    out["launches"] = {"identity": out["fleet"]["identity"] + out["basic"]["identity"],
+                       "banded": 0}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] phase 16 in {out['seconds']:.1f} s")
+    return out
+
+
 PHASES = ("serve", "train", "real_data", "inverse", "label", "eval", "eval_mesh", "detector",
-          "frontend", "viz", "video", "rest")
+          "frontend", "viz", "video", "rest", "parallel")
 
 
 def counted_phase(fn, *args) -> tuple:
@@ -4481,6 +4829,7 @@ def main() -> None:
     res["viz"], whole["viz"] = counted_phase(viz_path)
     res["video"], whole["video"] = counted_phase(video_path)
     res["rest"], whole["rest"] = counted_phase(rest_path)
+    res["parallel"], whole["parallel"] = counted_phase(parallel_path, res["train"])
     # each phase's main-path launches: its own count where it reads one
     # (every phase the resize kernel's; the detector, the front end and
     # video the NMS's; video the NV12 kernel's), else the whole phase's

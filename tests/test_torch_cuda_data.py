@@ -54,7 +54,8 @@ def test_cli_trains_on_the_card_from_the_fixture(tmp_path, device_dataset):
         .replace("NUM_STEPS: 300000", "NUM_STEPS: 4")
         + f"TARGET_UPDATE_INTERVAL: 3\nTPU:\n  DEVICE_DATASET: {device_dataset}\n")
     rn.LAUNCHES.clear()
-    state, loss = train_q_network.main([str(folder), "--log-every", "2"])
+    # the card named: with no device the CLI takes every card of a machine of several
+    state, loss = train_q_network.main([str(folder), "--log-every", "2"], device="cuda:0")
     assert state.step == 4 and np.isfinite(loss)
     assert dict(rn.LAUNCHES) == {("identity", "bfloat16"): 8}  # 2 a step, B = 256 at 224 px
     assert sorted(p.name for p in (folder / "models").iterdir()) == \

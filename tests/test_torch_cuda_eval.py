@@ -11,6 +11,8 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_cuda_eval.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -173,6 +175,31 @@ def test_batched_runner_serves_bf16_scores_of_its_own_views(tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("views,size", [(13, 224), (24, 256)], ids=["identity", "banded"])
+def test_scorer_on_every_card_matches_one_card(views, size):
+    """make_multiclass_scorer(devices=every card), as the evaluate CLI
+    builds it on a machine of several: the batch padded to a multiple of
+    the cards, a chunk a card, each chunk one kernel launch, the scores in
+    order within SERVE_ATOL of one card's (bf16 forwards of other batch
+    sizes). Skips on a machine of one card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards or more")
+    model = init_qnet(HabitatDQN(panorama=False, image_size=224),
+                      torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    images = rng.integers(0, 256, (views, size, size, 3), np.uint8)
+    cls = rng.integers(0, 5, views)
+    one = make_multiclass_scorer(copy.deepcopy(model), image_size=224)(images, cls)
+    every = make_multiclass_scorer(model, image_size=224,
+                                   devices=[torch.device("cuda", i) for i in range(cards)])
+    rn.LAUNCHES.clear()
+    got = every(images, cls)
+    assert sum(rn.LAUNCHES.values()) == cards
+    assert got.shape == (views,) and np.abs(got - one).max() <= SERVE_ATOL
+
+
+@pytest.mark.cuda
 def test_furnished_stop_renders_as_the_twin():
     """The host library's render of a 12-view stop in the furnished house
     against the numpy twin (chip_smoke.py phase 10 (a), at 48 px): depth
@@ -237,8 +264,9 @@ def test_furnished_cli_serves_bf16_scores_of_its_own_views(tmp_path, monkeypatch
 
     monkeypatch.setattr(evaluate_cli, "make_multiclass_scorer", recording)
     rn.LAUNCHES.clear()
+    # the card named: with no device the CLI serves on every card of a machine of several
     mean = evaluate_cli.main([str(tmp_path / "e.yml"), "--furnished-env", "--workload", "2",
-                              "--batched", "2", "--pipeline-depth", "2"])
+                              "--batched", "2", "--pipeline-depth", "2"], device="cuda:0")
     assert mean is not None and 0.0 <= mean <= 1.0
     cfg = load_file(str(tmp_path / "e.yml"))
     results = DiskReader(str(tmp_path / "results" / name_from_config(cfg))).data()

@@ -177,13 +177,30 @@ def test_run_train_checkpoints_and_resumes(tmp_path, device_dataset):
 
 def test_run_train_needs_a_batcher_and_refuses_unported_keys(tmp_path):
     """Without a batcher run_train reads the config's DATASET, which must
-    exist (the default 'none' does not)."""
+    exist (the default 'none' does not). The mesh keys and
+    TPU.SHARD_DATASET train (tests/test_torch_parallel.py runs them on
+    ranks): in one process the mesh is 1x1 and the table replicated, so
+    the run is the plain one, bit for bit; a model axis one process cannot
+    fill raises JAX's ValueError."""
     folder = write_config(tmp_path / "exp", False)
     with pytest.raises(FileNotFoundError, match="none"):
         run_train(ExperimentConfig(folder), device="cpu")
+    tables = synthetic_video_tables(12, 16, 96, seed=1)
+    states = []
+    for name, keys in (("plain", ""), ("keys", "  SHARD_DATASET: True\n  MESH_DATA: -1\n")):
+        folder = write_config(tmp_path / name, True)
+        with open(f"{folder}/config.yml", "a") as f:
+            f.write(keys)
+        # one step: no checkpoint (CHECKPOINT_INTERVAL 2) to write
+        state, loss = run_train(ExperimentConfig(folder), batcher=TableSource(tables, seed=4),
+                                max_steps=1, log_every=1, device="cpu")
+        assert state.step == 1 and np.isfinite(loss)
+        states.append(state)
+    for a, b in zip(states[0].model.state_dict().values(), states[1].model.state_dict().values()):
+        assert torch.equal(a, b)
     with open(f"{folder}/config.yml", "a") as f:
-        f.write("  SHARD_DATASET: True\n  MESH_MODEL: 2\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*SHARD_DATASET.*MESH"):
+        f.write("  MESH_MODEL: 2\n")
+    with pytest.raises(ValueError, match="1 devices not divisible by model=2"):
         run_train(ExperimentConfig(folder), batcher=object(), device="cpu")
 
 

@@ -42,6 +42,8 @@ from video_dqn_tpu_torch.viz.panorama import make_allclass_scorer
 from video_dqn_tpu_torch.viz.value_map import build_value_maps
 from video_dqn_tpu_torch.visualize_value import main as visualize_value_cli
 from video_dqn_tpu_torch.visualize_panorama import main as visualize_panorama_cli
+from video_dqn_tpu_torch.parallel.multihost import initialize as fleet_initialize
+from video_dqn_tpu_torch.tools.fleet_cards import main as fleet_cards_main
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,7 +78,8 @@ def test_every_module_imports_with_jax_blocked():
                  "data.sim_dataset", "models.alexnet_places", "extract_frames",
                  "data.png", "core.metrics", "viz", "viz.colormaps", "viz.value_map",
                  "viz.panorama", "viz.render_grid", "plan.visualize", "visualize_value",
-                 "visualize_panorama", "data.mp4", "data.h264", "data.video", "ops.nv12"):
+                 "visualize_panorama", "data.mp4", "data.h264", "data.video", "ops.nv12",
+                 "parallel", "parallel.mesh", "parallel.sharding", "parallel.multihost"):
         assert f"video_dqn_tpu_torch.{name}" in MODULES
     code = (
         "import importlib, sys\n"
@@ -97,11 +100,11 @@ def test_sources_name_no_jax():
     files = [*PORT.rglob("*.py"), *native,
              ROOT / "chip_smoke.py", ROOT / "tests/torch_qdata.py",
              ROOT / "tests/torch_detector_util.py", ROOT / "tests/torch_frontend_util.py",
-             ROOT / "tests/torch_video_fixture.py"]
+             ROOT / "tests/torch_video_fixture.py", ROOT / "tests/torch_parallel_ranks.py"]
     assert {"jpeg_decode.cc", "jpeg_encode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc",
             "mesh.cc", "resize_normalize.cu", "nms.cu", "nv12_rgb.cu", "mp4_demux.cc",
             "h264_decode.cc", "h264_tables.h", "mp4.py", "h264.py", "video.py",
-            "nv12.py"} <= {f.name for f in files}
+            "nv12.py", "mesh.py", "sharding.py", "multihost.py"} <= {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -165,6 +168,10 @@ EVAL_CFG = get_eval_defaults()
                              False),
     lambda: visualize_value_cli(["no_such_folder", "--data-root", "no_such_folder"]),
     lambda: visualize_panorama_cli(["--size", "32"]),
+    lambda: fleet_initialize("127.0.0.1:1", 1, 0, "native", 1, print),
+    lambda: train_cli(["--coordinator", "127.0.0.1:1", "--num-processes", "1",
+                       "--process-id", "0", "no_such_folder"]),
+    lambda: fleet_cards_main([]),
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
@@ -174,7 +181,8 @@ EVAL_CFG = get_eval_defaults()
         "load_detector", "detect_real_videos_main", "make_indoor_classifier",
         "load_alexnet_places", "extract_frames_main", "extract_frames_dump", "decode_frames",
         "extract_all_frames", "make_allclass_scorer",
-        "build_value_maps", "visualize_value_main", "visualize_panorama_main"])
+        "build_value_maps", "visualize_value_main", "visualize_panorama_main",
+        "fleet_initialize", "train_q_network_fleet", "fleet_cards_main"])
 def test_entry_points_need_cuda_by_default(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

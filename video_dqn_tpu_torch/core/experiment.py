@@ -4,7 +4,9 @@ defaults, validates, freezes and exposes every key as an attribute. Run
 logs go to an auto-incremented `run<N>` subfolder (resume reuses the
 latest; `remove` deletes the old ones first), checkpoints to
 `<folder>/models`, and `write_config_log` writes the resolved config to
-`<folder>/log` with the JAX package's text."""
+`<folder>/log` with the JAX package's text. In a fleet only the primary
+rank writes: the others pass `writer=False`, which makes no run dir and
+leaves `writer` None."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from .metrics import MetricsWriter
 
 
 class ExperimentConfig:
-    def __init__(self, folder: str, remove: bool = False, resume: bool = False):
+    def __init__(self, folder: str, remove: bool = False, resume: bool = False,
+                 writer: bool = True):
         self.folder = folder
         if remove:
             for f in os.listdir(folder):
@@ -34,7 +37,7 @@ class ExperimentConfig:
         self.cfg = cfg.freeze()
         for k in cfg:
             setattr(self, k, cfg[k])
-        self.writer = MetricsWriter(self.run_dir)
+        self.writer = MetricsWriter(self.run_dir) if writer else None
 
     @property
     def models_dir(self) -> str:

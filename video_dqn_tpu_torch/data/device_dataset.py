@@ -16,6 +16,17 @@ uses a CPU torch.Generator seeded from (seed, epoch) or (seed, k), so the
 stream is the same on every device and across resume; it is not the JAX
 package's stream, whose threefry bits torch does not reproduce. The B row
 indices cross to the card through pinned memory without a synchronize.
+
+On a mesh (parallel/mesh.py) every rank draws the same B global rows and
+keeps its data slice, rows [d·B/D, (d+1)·B/D). With `shard_frames`
+(TPU.SHARD_DATASET) and a data group of D > 1 the frame table, padded to a
+multiple of D, is split along the data group: each rank gathers the
+requested frames of the whole batch that it owns (clipped local index,
+ownership mask, zero elsewhere, in uint8), and one reduce-scatter (sum)
+over the data group deals each rank its slice. Exactly one rank owns each
+frame, so the uint8 sum is exact and the stream is bit-equal to the
+replicated layout's; the wire carries one batch of frames a step, not the
+table. A data group of 1 keeps the replicated layout, as JAX does.
 """
 
 from __future__ import annotations
@@ -24,8 +35,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
+from ..parallel.mesh import Mesh
 
 TABLE_KEYS = ("frames", "before_idx", "after_idx", "action", "reward", "terminal",
               "gt", "valid_mask")
@@ -48,25 +61,36 @@ def device_memory_bytes(device) -> Optional[int]:
     return torch.cuda.mem_get_info(device)[1] if device.type == "cuda" else None
 
 
-def check_capacity(num_frames: int, image_size: int,
-                   memory_limit_bytes: Optional[int]) -> None:
+def check_capacity(num_frames: int, image_size: int, memory_limit_bytes: Optional[int],
+                   data_shards: int = 1, sharded: bool = False) -> None:
     """Raise unless a table of `num_frames` uint8 frames of image_size^2 x
-    3 fits MEMORY_BUDGET_FRACTION of the device's memory; callers check
-    before they decode or upload anything."""
+    3 fits MEMORY_BUDGET_FRACTION of the device's memory, or of the
+    `data_shards` devices' together when the table is `sharded` over them;
+    callers check before they decode or upload anything."""
     nbytes = num_frames * image_size * image_size * 3
-    if memory_limit_bytes is not None and nbytes > MEMORY_BUDGET_FRACTION * memory_limit_bytes:
-        raise ValueError(
-            f"TPU.DEVICE_DATASET: the frame table ({num_frames} unique "
-            f"{image_size}px frames = {nbytes / 1e9:.2f} GB) exceeds "
-            f"{MEMORY_BUDGET_FRACTION:.0%} of the device's memory "
-            f"({memory_limit_bytes / 1e9:.2f} GB). Use the host-fed infeed "
-            f"(TPU.DEVICE_DATASET: false) or a smaller TPU.IMAGE_SIZE.")
+    scale = data_shards if sharded else 1
+    if memory_limit_bytes is None or nbytes <= MEMORY_BUDGET_FRACTION * memory_limit_bytes * scale:
+        return
+    if sharded or data_shards == 1:
+        hint = ("Use the host-fed infeed (TPU.DEVICE_DATASET: false) or a smaller "
+                "TPU.IMAGE_SIZE.")
+    else:
+        hint = (f"Shard the table across the data axis (TPU.SHARD_DATASET: true - aggregate "
+                f"capacity {MEMORY_BUDGET_FRACTION * memory_limit_bytes * data_shards / 1e9:.2f}"
+                f" GB), or use the host-fed infeed (TPU.DEVICE_DATASET: false).")
+    raise ValueError(
+        f"TPU.DEVICE_DATASET: the frame table ({num_frames} unique "
+        f"{image_size}px frames = {nbytes / 1e9:.2f} GB) exceeds "
+        f"{MEMORY_BUDGET_FRACTION:.0%} of the "
+        f"{'aggregate data-axis' if sharded else 'device'} memory "
+        f"({memory_limit_bytes * scale / 1e9:.2f} GB). " + hint)
 
 
 class DeviceDataset:
     def __init__(self, tables: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
                  sampling: str = "epoch", device=None,
-                 memory_limit_bytes: Optional[int] = None):
+                 memory_limit_bytes: Optional[int] = None, mesh: Optional[Mesh] = None,
+                 shard_frames: bool = False):
         self.device = resolve_device(device)
         missing = set(TABLE_KEYS) - set(tables)
         if missing:
@@ -81,15 +105,33 @@ class DeviceDataset:
             raise ValueError(f"batch_size {batch_size} exceeds dataset size {self.n}")
         self.seed, self.sampling = int(seed), sampling
         self.steps_per_epoch = self.n // self.batch_size
+        self.mesh = mesh or Mesh()
+        n_data = self.mesh.data
+        # a data group of 1 keeps the replicated layout
+        self.sharded = bool(shard_frames) and n_data > 1
+        if self.sharded and self.batch_size % n_data:
+            raise ValueError(f"TPU.SHARD_DATASET: batch_size {batch_size} must divide across "
+                             f"the {n_data}-way data axis")
 
         # capacity guard, before anything is uploaded
         if memory_limit_bytes is None:
             memory_limit_bytes = device_memory_bytes(self.device)
-        check_capacity(len(frames), frames.shape[1], memory_limit_bytes)
+        check_capacity(len(frames), frames.shape[1], memory_limit_bytes, n_data, self.sharded)
 
+        if self.sharded:
+            # padded to a multiple of the data ranks; pad rows are never indexed
+            self.frame_rows = len(frames) + (-len(frames)) % n_data
+            self.shard_rows = self.frame_rows // n_data
+            lo = self.mesh.d * self.shard_rows
+            shard = np.zeros((self.shard_rows,) + frames.shape[1:], np.uint8)
+            mine = frames[lo:lo + self.shard_rows]
+            shard[:len(mine)] = mine
+            frames = shard
+        else:
+            self.frame_rows = len(frames)
         self.bytes = frames.nbytes
-        self.tables = {k: torch.from_numpy(np.ascontiguousarray(tables[k])).to(self.device)
-                       for k in TABLE_KEYS}
+        self.tables = {k: torch.from_numpy(np.ascontiguousarray(
+            frames if k == "frames" else tables[k])).to(self.device) for k in TABLE_KEYS}
         self._epoch_perm = (-1, None)
 
     def rows(self, step: int) -> torch.Tensor:
@@ -104,18 +146,38 @@ class DeviceDataset:
         return self._epoch_perm[1][j * b:(j + 1) * b]
 
     def sample(self, step: int) -> Dict[str, torch.Tensor]:
-        """Batch `step` on the device: before/after (B, F, S, S, 3) uint8 and
-        the labels of QLearningBatcher.get_batch."""
+        """Batch `step` on the device, this rank's rows of it: before/after
+        (B, F, S, S, 3) uint8 and the labels of QLearningBatcher.get_batch."""
         rows = self.rows(step)
         if self.device.type == "cuda":
             rows = rows.pin_memory().to(self.device, non_blocking=True)
+        start, size = self.mesh.global_batch_slice(self.batch_size)
+        mine = rows[start:start + size]
         t = self.tables
         s = t["frames"].shape[1:]
-        batch = {k: t[k].index_select(0, rows) for k in LABEL_KEYS}
+        batch = {k: t[k].index_select(0, mine) for k in LABEL_KEYS}
         for key, col in (("before", "before_idx"), ("after", "after_idx")):
-            idx = t[col].index_select(0, rows)
-            batch[key] = t["frames"].index_select(0, idx.reshape(-1)).reshape(idx.shape + s)
+            if self.sharded:
+                batch[key] = self._gather_sharded(t[col].index_select(0, rows), size)
+            else:
+                idx = t[col].index_select(0, mine)
+                batch[key] = t["frames"].index_select(0, idx.reshape(-1)).reshape(idx.shape + s)
         return batch
+
+    def _gather_sharded(self, idx: torch.Tensor, size: int) -> torch.Tensor:
+        """The frames of every row's `idx` (B, F) -> this rank's `size`
+        rows of them: its own frames of the whole batch, zero elsewhere,
+        summed and dealt over the data group by one reduce-scatter."""
+        frames = self.tables["frames"]
+        local = idx - self.mesh.d * self.shard_rows
+        owned = (local >= 0) & (local < self.shard_rows)
+        got = frames.index_select(0, local.clamp(0, self.shard_rows - 1).reshape(-1))
+        got = got.reshape(idx.shape + frames.shape[1:])
+        got = torch.where(owned[..., None, None, None], got, torch.zeros((), dtype=got.dtype,
+                                                                            device=got.device))
+        out = torch.empty((size,) + got.shape[1:], dtype=got.dtype, device=got.device)
+        dist.reduce_scatter_tensor(out, got.contiguous(), group=self.mesh.data_group)
+        return out
 
     def batches(self, start_step: int = 0):
         """Endless stream of device batches; batch k is sample(k), so a

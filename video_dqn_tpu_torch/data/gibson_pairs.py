@@ -114,11 +114,17 @@ class GibsonPairBatcher:
             "gt": self.gt[indices],
         }
 
-    def batches(self, batch_size: int, epochs: Optional[int] = None
-                ) -> Iterator[Dict[str, np.ndarray]]:
+    def index_stream(self, batch_size: int, epochs: Optional[int] = None
+                     ) -> Iterator[np.ndarray]:
+        """Shuffled row indices, a fresh permutation per epoch, drop_last."""
         epoch = 0
         while epochs is None or epoch < epochs:
             perm = self._rng.permutation(self.n)
             for i in range(0, self.n - batch_size + 1, batch_size):
-                yield self.get_batch(perm[i: i + batch_size])
+                yield perm[i: i + batch_size]
             epoch += 1
+
+    def batches(self, batch_size: int, epochs: Optional[int] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        for rows in self.index_stream(batch_size, epochs):
+            yield self.get_batch(rows)

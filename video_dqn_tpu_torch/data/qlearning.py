@@ -180,11 +180,14 @@ class QLearningBatcher:
         for rows in self.index_stream(batch_size):
             yield self.get_batch(rows)
 
-    def tables(self, memory_limit_bytes: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def tables(self, memory_limit_bytes: Optional[int] = None, data_shards: int = 1,
+               sharded: bool = False) -> Dict[str, np.ndarray]:
         """The device dataset's tables: each unique frame once (the paths of
         every row's before and after stacks, in first-seen order), the
         rows' stacks as indices into them, and the labels. The capacity
-        check against `memory_limit_bytes` runs before the decode."""
+        check against `memory_limit_bytes` a device (check_capacity: the
+        table `sharded` over `data_shards` devices or not) runs before the
+        decode."""
         uniq: Dict[str, int] = {}
         stacks = {}
         for col in ("before_image", "after_image"):
@@ -194,7 +197,7 @@ class QLearningBatcher:
                                                         self.cols["im_start"][i])):
                     idx[i, f] = uniq.setdefault(p, len(uniq))
             stacks[col] = idx
-        check_capacity(len(uniq), self.image_size, memory_limit_bytes)
+        check_capacity(len(uniq), self.image_size, memory_limit_bytes, data_shards, sharded)
         paths = list(uniq)
         frames = np.empty((len(paths), self.image_size, self.image_size, 3), np.uint8)
         for i in range(0, len(paths), DECODE_CHUNK):

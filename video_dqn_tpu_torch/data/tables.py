@@ -27,9 +27,10 @@ class TableSource:
         self.n = len(tables["action"])
         self._rng = np.random.default_rng(seed)
 
-    def tables(self, memory_limit_bytes: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def tables(self, memory_limit_bytes: Optional[int] = None, data_shards: int = 1,
+               sharded: bool = False) -> Dict[str, np.ndarray]:
         frames = self._tables["frames"]
-        check_capacity(len(frames), frames.shape[1], memory_limit_bytes)
+        check_capacity(len(frames), frames.shape[1], memory_limit_bytes, data_shards, sharded)
         return self._tables
 
     def get_batch(self, rows: np.ndarray) -> Dict[str, np.ndarray]:
@@ -40,14 +41,19 @@ class TableSource:
         batch["after"] = t["frames"][t["after_idx"][rows]]
         return batch
 
-    def batches(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
-        """Endless shuffled batches, a fresh permutation per epoch, drop_last."""
+    def index_stream(self, batch_size: int) -> Iterator[np.ndarray]:
+        """Endless shuffled row indices, a fresh permutation per epoch, drop_last."""
         if batch_size > self.n:
             raise ValueError(f"batch_size {batch_size} exceeds dataset size {self.n}")
         while True:
             perm = self._rng.permutation(self.n)
             for i in range(0, self.n - batch_size + 1, batch_size):
-                yield self.get_batch(perm[i:i + batch_size])
+                yield perm[i:i + batch_size]
+
+    def batches(self, batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+        """Endless shuffled batches: get_batch of each index_stream draw."""
+        for rows in self.index_stream(batch_size):
+            yield self.get_batch(rows)
 
 
 def synthetic_video_tables(num_frames: int, num_rows: int, image_size: int,

@@ -12,6 +12,8 @@ with float32 parameters; the scores come back as float32. On the CPU
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import Callable
 
 import numpy as np
@@ -87,7 +89,7 @@ def bucket_size(b: int) -> int:
 
 
 def make_multiclass_scorer(model, image_size: int = 224, bucket: bool = True,
-                           device=None) -> Callable:
+                           device=None, devices=None) -> Callable:
     """Scorer for the batched runner: uint8 (B, F, H, W, 3) + (B,) class
     indices -> (B,) float32 max-over-actions Q of each view's own class,
     one forward for everything. Moves `model` to `device` (None: the card).
@@ -96,9 +98,18 @@ def make_multiclass_scorer(model, image_size: int = 224, bucket: bool = True,
     the last row, so the card sees O(log K) shapes; pad scores are sliced
     off. `.dispatch` is non-blocking on the card: it copies through a
     pinned host buffer, enqueues the forward and the copy back to a pinned
-    buffer, and records an event; `.gather` waits on that event."""
-    device = place(model, device)
-    on_card = device.type == "cuda"
+    buffer, and records an event; `.gather` waits on that event.
+
+    With `devices` (a list, which takes the place of `device`; JAX's scorer
+    takes a mesh) the scorer is data parallel in this one process: `model`
+    on the first device and a copy on each other, the batch padded to a multiple of their count (JAX's
+    `target += (-target) % n_shard`), split into contiguous chunks, one a
+    device, each dispatched without blocking, gathered in order."""
+    devices = devices or [device]
+    replicas = [model] + [copy.deepcopy(model) for _ in devices[1:]]
+    places = [place(m, d) for m, d in zip(replicas, devices)]
+    on_card = places[0].type == "cuda"
+    n = len(replicas)
 
     def dispatch(images, cls):
         x = as_views(images)
@@ -109,6 +120,7 @@ def make_multiclass_scorer(model, image_size: int = 224, bucket: bool = True,
         if b == 0 or c.min() < 0 or c.max() >= model.num_classes:
             raise ValueError(f"bad request: {b} views, classes {c}")
         target = bucket_size(b) if bucket else b
+        target += (-target) % n
         host_x = torch.empty((target,) + x.shape[1:], dtype=torch.uint8,
                              pin_memory=on_card)
         host_c = torch.empty((target,), dtype=torch.int64, pin_memory=on_card)
@@ -116,22 +128,30 @@ def make_multiclass_scorer(model, image_size: int = 224, bucket: bool = True,
         host_x.numpy()[b:] = x[-1]
         host_c.numpy()[:b] = c
         host_c.numpy()[b:] = c[-1]
-        with torch.no_grad():
-            s = _scores(model, host_x.to(device, non_blocking=True),
-                        host_c.to(device, non_blocking=True), image_size)
+        chunk = target // n
+        scores = []
+        for i, (net, dev) in enumerate(zip(replicas, places)):
+            rows = slice(i * chunk, (i + 1) * chunk)
+            with torch.cuda.device(dev) if on_card else contextlib.nullcontext(), \
+                    torch.no_grad():
+                scores.append(_scores(net, host_x[rows].to(dev, non_blocking=True),
+                                      host_c[rows].to(dev, non_blocking=True), image_size))
         if not on_card:
-            return s, None, b, (host_x, host_c)
-        out = torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
-        out.copy_(s, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+            return torch.cat(scores), [], b, (host_x, host_c)
+        out = torch.empty((target,), dtype=scores[0].dtype, pin_memory=True)
+        done = []
+        for i, (s, dev) in enumerate(zip(scores, places)):
+            with torch.cuda.device(dev):
+                out[i * chunk:(i + 1) * chunk].copy_(s, non_blocking=True)
+                done.append(torch.cuda.Event())
+                done[-1].record()
         # the host buffers ride in the handle until the copies are done
         return out, done, b, (host_x, host_c)
 
     def gather(handle) -> np.ndarray:
         out, done, b, _ = handle
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         return out[:b].numpy()
 
     def scorer(images, cls) -> np.ndarray:

@@ -18,7 +18,10 @@ default maze, --mesh-scene FILE over a PLY/OBJ/GLB scene (STAIRS sets
 allow_stairs). --workload N generates N episodes: on the furnished
 two-floor house with --furnished-env, on the mesh simulator with
 --mesh-env or --mesh-scene, else on the fake env; a model-scored workload
-renders at the model's TPU.IMAGE_SIZE. -p writes a torch.profiler trace to
+renders at the model's TPU.IMAGE_SIZE. With --batched on a machine of
+several cards the scorer is data parallel over all of them, as the JAX
+CLI builds its mesh over every device (`main(device=...)` names one card
+instead). -p writes a torch.profiler trace to
 RESULT_LOCATION/<name_from_config>_trace.json.
 
 A sequential run visualises every 100th episode, from episode 0, and with
@@ -37,6 +40,7 @@ import os
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ._device import resolve_device
 from .core.profiling import trace
@@ -96,9 +100,11 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None, device=None):
     """Run the evaluation that `argv` (sys.argv when None) asks for on
-    `device` (None: the card; raises without CUDA). Returns the mean SPL
+    `device` (None: the card, and for --batched every card where there
+    are several; raises without CUDA). Returns the mean SPL
     of the run's results folder (None when it is empty)."""
     args = parser().parse_args(argv)
+    every_card = device is None
     device = resolve_device(device)
 
     config = load_file(args.config)
@@ -145,8 +151,13 @@ def main(argv: Optional[List[str]] = None, device=None):
     with trace(path, device) if args.profile else contextlib.nullcontext():
         if args.batched and config.SCORE == "model" and "env_factory" in kwargs:
             model, mc = load_scoring_model(config, device)
-            scorer = make_multiclass_scorer(model, image_size=int(mc.TPU.IMAGE_SIZE),
-                                            device=device)
+            # with no device named, every card when there are several, as
+            # JAX's CLI builds its mesh over every device
+            cards = torch.cuda.device_count() if every_card else 1
+            scorer = make_multiclass_scorer(
+                model, image_size=int(mc.TPU.IMAGE_SIZE),
+                devices=[torch.device("cuda", i) for i in range(cards)] if cards > 1
+                else [device])
             run_policy_batched(
                 config, episodes,
                 env_factory=lambda h, c: kwargs["env_factory"](h, mc, c),

@@ -340,10 +340,15 @@ def flax_from_inverse_state_dict(sd: Mapping[str, torch.Tensor],
     return _to_table(sd, "params", table), _to_table(sd, "batch_stats", table)
 
 
-def adam_to_optax(optimizer: torch.optim.Adam, model) -> Dict:
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def adam_to_optax(optimizer: torch.optim.Adam, model, full: Callable = _whole) -> Dict:
     """torch.optim.Adam's (or AdamW's) state over `model`'s parameters ->
     optax ScaleByAdamState as a Flax state dict: {count (int32), mu, nu}.
-    Before the first step Adam holds no state: count 0, zero moments."""
+    Before the first step Adam holds no state: count 0, zero moments.
+    `full(name, moment)` gives a sharded parameter's whole moment."""
     named = dict(model.named_parameters())
     states = [optimizer.state.get(p, {}) for p in named.values()]
     counts = {int(s["step"]) for s in states if s}
@@ -353,18 +358,21 @@ def adam_to_optax(optimizer: torch.optim.Adam, model) -> Dict:
     moments = {}
     for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
         moments[key] = model_to_flax(
-            {n: s[field] if s else torch.zeros_like(p)
+            {n: full(n, s[field] if s else torch.zeros_like(p))
              for (n, p), s in zip(named.items(), states)},
             "params", model)
     return {"count": np.asarray(count, np.int32), **moments}
 
 
-def adam_from_optax(optimizer: torch.optim.Adam, model, opt_state: Mapping) -> None:
+def adam_from_optax(optimizer: torch.optim.Adam, model, opt_state: Mapping,
+                    local: Callable = _whole) -> None:
     """Load an optax ScaleByAdamState state dict ({count, mu, nu}) into
-    torch.optim.Adam's per-parameter state, in place."""
+    torch.optim.Adam's per-parameter state, in place. `local(name,
+    moment)` gives a sharded parameter's shard of a whole moment."""
     count = int(np.asarray(opt_state["count"]))
     mu = _from_table(opt_state["mu"], "params", entries(model))
     nu = _from_table(opt_state["nu"], "params", entries(model))
+    mu, nu = ({n: local(n, t) for n, t in m.items()} for m in (mu, nu))
     for name, p in model.named_parameters():
         if mu[name].shape != p.shape:
             raise ValueError(f"Adam moment {name}: {tuple(mu[name].shape)} "

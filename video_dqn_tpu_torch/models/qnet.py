@@ -35,6 +35,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import shard_head
 from .resnet import BatchNorm2d, ResNet18
 
 
@@ -113,6 +115,19 @@ class HabitatDQN(nn.Module):
         finally:
             for m in norms:
                 m.update_stats = True
+
+    def distribute(self, mesh: Mesh) -> "HabitatDQN":
+        """Run on `mesh` (parallel/mesh.py), in place: the head's wide
+        Linears hold this rank's shard of their output features
+        (parallel/sharding.py), and, where the mesh has a data group,
+        train-mode BatchNorm normalizes by the global batch's statistics.
+        Only the basic arch trains its BatchNorm (see set_train)."""
+        shard_head(self, mesh)
+        if mesh.data_group is not None:
+            for m in self.resnet.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.sync = mesh
+        return self
 
     def set_train(self, mode: bool = True) -> "HabitatDQN":
         """The reference's set_train(): train mode, except that

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import all_reduce_sum
+
 TAPS = ("conv", "pool", "logits")
 
 
@@ -38,18 +40,46 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalized by its biased statistics in both. Eval mode is
     nn.BatchNorm2d's. With `update_stats` False a train-mode forward
     leaves the running statistics alone (a checkpointed trunk's
-    recomputation, models/qnet.py)."""
+    recomputation, models/qnet.py).
+
+    With `sync` set to a mesh (parallel/mesh.py) a train-mode forward
+    normalizes by the statistics of the global batch, what JAX's BatchNorm
+    computes under jit on a data-sharded batch: the per-channel count, sum
+    and sum of squares, in float32, go through one differentiable
+    all-reduce over the data group, the variance is E[x^2] - E[x]^2 (Flax's
+    fast variance), and the running statistics move toward the global mean
+    and biased variance. It runs whenever the mesh has a data group, of
+    any size. (torch.nn.SyncBatchNorm takes GPU tensors only.)"""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.update_stats = True
+        self.sync = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync is not None:
+            return self._synced(x)
         if self.update_stats:
             self._update_running_stats(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        c = x.shape[1]
+        sums = torch.cat([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3)),
+                          x32.new_full((1,), x.numel() // c)])
+        sums = all_reduce_sum(sums, self.sync.data_group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
     @torch.no_grad()
     def _update_running_stats(self, x: torch.Tensor) -> None:

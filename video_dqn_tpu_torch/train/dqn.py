@@ -26,16 +26,32 @@ parameters; float32 runs them without autocast. One step is one dispatch
 converts to and from the JAX package's TrainState state dict
 (`flax_state_dict`, `load_flax_state_dict`), which is what
 `sample<N>.ckpt` holds.
+
+On a process group (parallel/multihost.py) a run spans the mesh of
+TPU.MESH_DATA x TPU.MESH_MODEL ranks (parallel/mesh.py), as the JAX step
+spans a device mesh: each rank steps on its data slice of the global
+batch; the extra_capacity head's wide Linears hold one shard a model rank
+(parallel/sharding.py); basic's train-mode BatchNorm normalizes by the
+global batch; after the backward one all-reduce averages the gradients and
+the loss over the data group. That plain all-reduce stands where
+DistributedDataParallel would: one collective a step over a flat buffer,
+never in flight beside the head's own model-group collectives of the
+backward, and the same code on gloo and NCCL; every rank starts from the
+same seeded state, so nothing is broadcast. Adam holds each rank's shards
+(it is elementwise, so they are exact); the target sync is per rank. A
+checkpoint gathers the sharded head over the model group on every rank
+and holds the whole Flax tree, so `-r` resumes on any mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import itertools
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -52,6 +68,8 @@ from ..models.bridge import (adam_from_optax, adam_to_optax, flax_from_qnet_stat
                              layout, load_torch_state_dict, qnet_state_dict_from_flax)
 from ..models.qnet import HabitatDQN, build_qnet, init_qnet
 from ..ops.resize_normalize import resize_normalize
+from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sharding import full_tensor, local_tensor, param_specs
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the step's phases, in order; `mark(name)` is called as each begins
@@ -66,13 +84,15 @@ def _no_mark(name: str) -> None:
 @dataclass
 class TrainState:
     """Online and target Q-nets, Adam over the online net's parameters,
-    the number of steps taken, and the loss's EMA (a 0-d float32 tensor on
-    the device, read by the host only at log points)."""
+    the number of steps taken, the loss's EMA (a 0-d float32 tensor on
+    the device, read by the host only at log points), and the mesh the nets
+    are laid on (the 1x1 mesh without a process group)."""
     model: HabitatDQN
     target: HabitatDQN
     optimizer: torch.optim.Adam
     step: int
     ema_loss: torch.Tensor
+    mesh: Mesh = field(default_factory=Mesh)
 
 
 def compute_dtype(config) -> torch.dtype:
@@ -105,19 +125,22 @@ def read_backbone(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in load_torch_state_dict(path).items() if not k.startswith("fc.")}
 
 
-def create_train_state(config, device=None) -> TrainState:
+def create_train_state(config, device=None, mesh: Optional[Mesh] = None) -> TrainState:
     """The seeded state of a fresh run: the Q-net initialized from
     config.SEED on the CPU (so every device starts from the same weights),
-    the backbone weights if any, the target a copy, Adam at step 0."""
+    the backbone weights if any, laid on `mesh` (HabitatDQN.distribute;
+    None: the 1x1 mesh), the target a copy, Adam at step 0."""
     device = resolve_device(device)
+    mesh = mesh or Mesh()
     model = build_qnet(config, int(config.TPU.IMAGE_SIZE), device="cpu")
     init_qnet(model, torch.Generator().manual_seed(int(config.SEED)))
     load_backbone_weights(config, model)
+    model.distribute(mesh)
     model.to(device, memory_format=torch.channels_last).set_train(True)
     target = copy.deepcopy(model).eval().requires_grad_(False)
     optimizer = torch.optim.Adam(model.parameters(), lr=float(config.LEARNING_RATE),
                                  betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model, target, optimizer, 0, torch.zeros((), device=device))
+    return TrainState(model, target, optimizer, 0, torch.zeros((), device=device), mesh)
 
 
 def sync_target(state: TrainState) -> None:
@@ -132,24 +155,31 @@ def sync_target(state: TrainState) -> None:
 def flax_state_dict(state: TrainState) -> Dict:
     """The JAX package's TrainState as a Flax state dict of numpy leaves:
     step, params, batch_stats, target_params, target_batch_stats,
-    opt_state (optax.adam's ({count, mu, nu}, EmptyState)) and ema_loss."""
-    params, stats = flax_from_qnet_state_dict(state.model.state_dict(), *layout(state.model))
-    tparams, tstats = flax_from_qnet_state_dict(state.target.state_dict(),
-                                                *layout(state.target))
+    opt_state (optax.adam's ({count, mu, nu}, EmptyState)) and ema_loss.
+    On a model axis of M > 1 the head's shards are gathered (a collective:
+    every rank of the model group calls it), so the tree is the whole one."""
+    full = functools.partial(full_tensor, specs=param_specs(state.model), mesh=state.mesh)
+    params, stats = flax_from_qnet_state_dict(
+        {k: full(k, v) for k, v in state.model.state_dict().items()}, *layout(state.model))
+    tparams, tstats = flax_from_qnet_state_dict(
+        {k: full(k, v) for k, v in state.target.state_dict().items()}, *layout(state.target))
+    adam = adam_to_optax(state.optimizer, state.model, full)
     return {"step": np.asarray(state.step, np.int32), "params": params,
             "batch_stats": stats, "target_params": tparams, "target_batch_stats": tstats,
-            "opt_state": {"0": adam_to_optax(state.optimizer, state.model), "1": {}},
+            "opt_state": {"0": adam, "1": {}},
             "ema_loss": np.asarray(state.ema_loss.item(), np.float32)}
 
 
 def load_flax_state_dict(state: TrainState, tree: Dict) -> None:
     """Load a TrainState state dict (`flax_state_dict`'s layout, from
-    either package) into `state`, in place; shapes must match."""
+    either package, whole) into `state`, in place, each rank its shards;
+    shapes must match."""
+    local = functools.partial(local_tensor, specs=param_specs(state.model), mesh=state.mesh)
     for net, p, s in ((state.model, "params", "batch_stats"),
                       (state.target, "target_params", "target_batch_stats")):
-        net.load_state_dict(qnet_state_dict_from_flax(tree[p], tree[s], *layout(net)),
-                            strict=True)
-    adam_from_optax(state.optimizer, state.model, tree["opt_state"]["0"])
+        sd = qnet_state_dict_from_flax(tree[p], tree[s], *layout(net))
+        net.load_state_dict({k: local(k, v) for k, v in sd.items()}, strict=True)
+    adam_from_optax(state.optimizer, state.model, tree["opt_state"]["0"], local)
     state.step = int(tree["step"])
     state.ema_loss = torch.from_numpy(np.array(tree["ema_loss"], np.float32)).to(
         state.ema_loss.device)
@@ -235,8 +265,9 @@ def make_loss_fn(model: HabitatDQN, config) -> Callable:
 
 def make_train_step(model: HabitatDQN, config) -> Callable:
     """step(state, batch, mark=None) -> {"loss", "ema_loss"} (0-d device
-    tensors), advancing `state` in place by one step. `mark(name)`, if
-    given, is called as each phase of PHASES begins (for timing)."""
+    tensors), advancing `state` in place by one step; on a mesh `batch` is
+    this rank's data slice and the loss is the global batch's. `mark(name)`,
+    if given, is called as each phase of PHASES begins (for timing)."""
     loss_fn = make_loss_fn(model, config)
     sync_every = int(config.TARGET_UPDATE_INTERVAL)
 
@@ -251,28 +282,21 @@ def make_train_step(model: HabitatDQN, config) -> Callable:
         loss = loss_fn(state.model, state.target, batch, mark)
         mark("backward")
         loss.backward()
+        loss = loss.detach()
+        if state.mesh.data_group is not None:
+            # the global batch's gradients and loss: means over the data group
+            loss = loss.reshape(1).clone()
+            state.mesh.mean_over_data([p.grad for p in state.model.parameters()
+                                       if p.grad is not None] + [loss])
+            loss = loss[0]
         mark("adam")
         state.optimizer.step()
         mark("end")
-        loss = loss.detach()
         state.ema_loss = loss.clone() if state.step == 0 else state.ema_loss * 0.99 + loss * 0.01
         state.step += 1
         return {"loss": loss, "ema_loss": state.ema_loss}
 
     return step_fn
-
-
-def _refuse_unported(config) -> None:
-    tpu = config.TPU
-    unported = [name for name, on in (
-        ("TPU.SHARD_DATASET (the sharded frame table)", bool(tpu.SHARD_DATASET)),
-        ("TPU.MESH_DATA / TPU.MESH_MODEL other than -1 or 1 / 1 (a device mesh)",
-         int(tpu.MESH_DATA) not in (-1, 1) or int(tpu.MESH_MODEL) != 1),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"not ported to video_dqn_tpu_torch yet (ROADMAP.md, queue 1): "
-            f"{'; '.join(unported)}")
 
 
 def stall_watchdog(config, device: torch.device) -> Optional[StallWatchdog]:
@@ -317,26 +341,61 @@ def batcher_from_config(config) -> QLearningBatcher:
     return batcher
 
 
+def _rank_batches(batcher, batch_size: int, mesh: Mesh):
+    """The host-fed stream on a mesh: every rank draws the same global rows
+    from the batcher's seeded index stream and decodes only its data slice
+    of them (the JAX package's _multihost_batch_stream)."""
+    start, size = mesh.global_batch_slice(batch_size)
+    for rows in batcher.index_stream(batch_size):
+        yield batcher.get_batch(rows[start:start + size])
+
+
+def _whole_net(config, tree: Dict, device) -> HabitatDQN:
+    """A one-card online net holding a checkpoint tree's params."""
+    net = build_qnet(config, int(config.TPU.IMAGE_SIZE), device=device)
+    net.load_state_dict(qnet_state_dict_from_flax(tree["params"], tree["batch_stats"],
+                                                  *layout(net)), strict=True)
+    return net.set_train(True)
+
+
 def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[int] = None,
               log_every: int = 100, device=None, visualize_hook: Optional[Callable] = None):
     """The training loop. `config` is an ExperimentConfig (.models_dir,
     .writer and the config keys). Without a `batcher` it reads the config's
     DATASET feather and its JPEG frames (`batcher_from_config`); a batcher
     passed in is any object with `batches(batch_size)`, an endless stream
-    of numpy batch dicts with QLearningBatcher.get_batch's contract, and,
-    for TPU.DEVICE_DATASET, `tables(memory_limit_bytes)`, the numpy tables
-    of data/device_dataset.py (e.g. data/tables.py `TableSource`). Returns
-    (state, last logged EMA loss). The loop beats the stall watchdog
-    (`stall_watchdog`) every step. A `visualize_hook(model, state,
-    sample_number)` runs after each checkpoint is written (the training
-    CLI passes one when VISUALIZATION_DATA_ROOT is set, as in the JAX
-    package). With TPU.DECODE_WORKERS > 0, host-fed and without a
-    `batcher`, the batches come from that many decode processes
-    (data/workers.py parallel_batches, forked here before the model
-    reaches the card); the device dataset decodes once and ignores the
-    key, as the JAX package does."""
+    of numpy batch dicts with QLearningBatcher.get_batch's contract (on a
+    data axis of more ranks than one, `index_stream(batch_size)`, an
+    endless stream of row indices, and `get_batch(rows)` in its place),
+    and, for TPU.DEVICE_DATASET, `tables(memory_limit_bytes, data_shards,
+    sharded)`, the numpy tables of data/device_dataset.py (e.g.
+    data/tables.py `TableSource`). Returns (state, last logged EMA loss). The loop beats the stall watchdog (`stall_watchdog`) every step.
+    A `visualize_hook(model, state, sample_number)` runs after each
+    checkpoint is written (the training CLI passes one when
+    VISUALIZATION_DATA_ROOT is set, as in the JAX package). With
+    TPU.DECODE_WORKERS > 0, host-fed and without a `batcher`, the batches
+    come from that many decode processes (data/workers.py
+    parallel_batches, forked here before the model reaches the card); the
+    device dataset decodes once and ignores the key, as the JAX package
+    does.
+
+    On a process group every rank runs this loop over the mesh of
+    TPU.MESH_DATA x TPU.MESH_MODEL (see the module's docstring), host-fed
+    ranks decode their data slice of each batch, and TPU.SHARD_DATASET
+    splits the device table over the data group. Metrics, checkpoint files
+    and the hook are rank 0's; the checkpoint's gather runs on every rank.
+    As in the JAX package, a batch the data ranks do not divide, and
+    TPU.DECODE_WORKERS with more than one rank, raise."""
     device = resolve_device(device)
-    _refuse_unported(config)
+    mesh = make_mesh(int(config.TPU.MESH_DATA), int(config.TPU.MESH_MODEL))
+    primary = mesh.rank == 0
+    batch_size = int(config.TPU.BATCH_SIZE)
+    if mesh.size > 1:
+        if batch_size % mesh.data:
+            raise ValueError(f"TPU.BATCH_SIZE {batch_size} must divide evenly across "
+                             f"{mesh.data} data ranks")
+        print(f"Mesh {mesh.data}x{mesh.model}: rank {mesh.rank} at (data {mesh.d}, "
+              f"model {mesh.m}) on {device}")
     stream = None
     if batcher is None:
         batcher = batcher_from_config(config)
@@ -345,12 +404,15 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
             print(f"TPU.DECODE_WORKERS: {workers} ignored: the device dataset decodes "
                   "its frames once, in this process")
         elif workers > 0:
-            stream = parallel_batches(batcher, int(config.TPU.BATCH_SIZE),
-                                      num_workers=workers, seed=int(config.SEED))
+            if mesh.size > 1:
+                raise ValueError(
+                    "TPU.DECODE_WORKERS and multi-rank training don't compose: each rank "
+                    "already decodes only its slice of the batch; set DECODE_WORKERS: 0")
+            stream = parallel_batches(batcher, batch_size, num_workers=workers,
+                                      seed=int(config.SEED))
             print(f"Decode workers: {workers}")
     with stream if stream is not None else contextlib.nullcontext():
-        batch_size = int(config.TPU.BATCH_SIZE)
-        state = create_train_state(config, device)
+        state = create_train_state(config, device, mesh)
 
         start_step = 0
         if resume_from > -1:
@@ -372,15 +434,24 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
         step_fn = make_train_step(state.model, config)
         if config.TPU.DEVICE_DATASET:
             t0 = time.perf_counter()
-            dds = DeviceDataset(batcher.tables(device_memory_bytes(device)), batch_size,
-                                seed=int(config.SEED),
-                                sampling=str(config.TPU.DEVICE_SAMPLING), device=device)
+            shard = bool(config.TPU.SHARD_DATASET)
+            tables = batcher.tables(device_memory_bytes(device), mesh.data,
+                                    shard and mesh.data > 1)
+            dds = DeviceDataset(tables, batch_size, seed=int(config.SEED),
+                                sampling=str(config.TPU.DEVICE_SAMPLING), device=device,
+                                mesh=mesh, shard_frames=shard)
+            where = f"1/{mesh.data} of them" if dds.sharded else "replicated"
             print(f"Device dataset: {dds.n} rows, {dds.bytes / 1e9:.2f} GB of frames on "
-                  f"{device}, built in {time.perf_counter() - t0:.2f} s; one step per dispatch "
-                  f"(TPU.SCAN_CHUNK has no counterpart yet)")
+                  f"{device} ({where}), built in {time.perf_counter() - t0:.2f} s; one step "
+                  f"per dispatch (TPU.SCAN_CHUNK has no counterpart yet)")
             batches = dds.batches(state.step)
         else:
-            source = stream if stream is not None else batcher.batches(batch_size)
+            if stream is not None:
+                source = stream
+            elif mesh.data > 1:
+                source = _rank_batches(batcher, batch_size, mesh)
+            else:
+                source = batcher.batches(batch_size)
             batches = prefetch_to_device(source, device, depth=int(config.TPU.PREFETCH_DEPTH))
 
         sample_number = start_step
@@ -396,17 +467,25 @@ def run_train(config, resume_from: int = -1, batcher=None, max_steps: Optional[i
                 # the EMA stays on the device; the host reads it only here
                 if sample_number % log_every == 0:
                     running_loss = float(metrics["ema_loss"])
-                    config.writer.add_scalar("avg_q_loss/train", running_loss, sample_number)
-                    config.writer.add_scalar("frames_per_sec/train",
-                                             log_every * batch_size / (time.time() - t0),
-                                             sample_number)
+                    if primary:
+                        config.writer.add_scalar("avg_q_loss/train", running_loss,
+                                                 sample_number)
+                        config.writer.add_scalar(
+                            "frames_per_sec/train",
+                            log_every * batch_size / (time.time() - t0), sample_number)
                     t0 = time.time()
                 if sample_number % int(config.CHECKPOINT_INTERVAL) == 0:
-                    save_checkpoint(config.models_dir, sample_number, flax_state_dict(state))
-                    if visualize_hook is not None:
-                        visualize_hook(state.model, state, sample_number)
-                        if watchdog is not None:
-                            watchdog.beat()
+                    # every rank of a model group gathers the sharded head
+                    tree = flax_state_dict(state) if primary or mesh.model > 1 else None
+                    if primary:
+                        save_checkpoint(config.models_dir, sample_number, tree)
+                        if visualize_hook is not None:
+                            # a sharded net's forward would wait on its model group
+                            net = state.model if mesh.model == 1 else \
+                                _whole_net(config, tree, device)
+                            visualize_hook(net, state, sample_number)
+                    if watchdog is not None:
+                        watchdog.beat()
         finally:
             if watchdog is not None:
                 watchdog.stop()

@@ -20,6 +20,13 @@ Dropout masks come from a torch.Generator seeded from the state's
 restores the other's checkpoints) and the step: torch cannot draw JAX's
 masks. COMPUTE dtype bfloat16 runs the trunk and head under bf16 autocast
 with float32 parameters (the calibration in float32); float32 without.
+
+With a process group up (parallel/multihost.py) `run_inverse_train` is data
+parallel over its ranks, the state replicated, as the JAX package's is over
+its devices: every rank draws the same global batch and dropout mask and
+steps on its rows of them; one all-reduce a step averages the head's
+gradients, the loss and the accuracy; validation averages the ranks'
+slices; rank 0 writes the scalars and checkpoints.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..models.bridge import (chain_from_optax, chain_to_optax, flax_from_inverse
                              inverse_state_dict_from_flax, sequential_trunk)
 from ..models.inverse import KEEP, InverseActionModel, init_inverse
 from ..ops.resize_normalize import resize_normalize
+from ..parallel.mesh import Mesh, make_mesh, shard_batch
 from .dqn import read_backbone
 
 # the step's phases, in order; `mark(name)` is called as each begins
@@ -173,13 +181,17 @@ def _autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == torch.bfloat16)
 
 
-def make_inverse_step(model: InverseActionModel, dtype: torch.dtype = torch.bfloat16) -> Callable:
+def make_inverse_step(model: InverseActionModel, dtype: torch.dtype = torch.bfloat16,
+                      mesh: Optional[Mesh] = None) -> Callable:
     """step(state, batch, dropout_mask=None, mark=None) -> {"loss",
     "accuracy"} (0-d device tensors), advancing `state` in place. `batch`
     holds device tensors with GibsonPairBatcher.get_batch's keys. Without
     a `dropout_mask` (B, 128) the state draws one. `mark(name)` is called
-    as each phase of PHASES begins."""
+    as each phase of PHASES begins. On a `mesh` with a data group, `batch`
+    is this rank's rows and the head's gradients, the loss and the
+    accuracy are averaged over the group after the backward."""
     head = model.head_parameters()
+    synced = mesh is not None and mesh.data_group is not None
 
     def step_fn(state: InverseTrainState, batch: Dict[str, torch.Tensor],
                 dropout_mask: Optional[torch.Tensor] = None,
@@ -205,11 +217,16 @@ def make_inverse_step(model: InverseActionModel, dtype: torch.dtype = torch.bflo
         accuracy = (logits.argmax(-1) == labels).float().mean()
         mark("backward")
         loss.backward()
+        loss = loss.detach()
+        if synced:
+            scalars = torch.stack([loss, accuracy])
+            mesh.mean_over_data([p.grad for p in head] + [scalars])
+            loss, accuracy = scalars[0], scalars[1]
         mark("adam")
         state.optimizer.step()
         mark("end")
         state.step += 1
-        return {"loss": loss.detach(), "accuracy": accuracy}
+        return {"loss": loss, "accuracy": accuracy}
 
     return step_fn
 
@@ -243,35 +260,52 @@ def run_inverse_train(train_batcher, val_batcher, out_dir: str, writer=None,
     `validate_every` steps the mean loss and accuracy of `val_batches`
     batches drawn by `val_batcher.get_batch`, the scalars Loss/train,
     Loss/val, Accuracy/train and Accuracy/val, and `sample<N>.ckpt`; a
-    final checkpoint when the last step was no validation step."""
+    final checkpoint when the last step was no validation step. With a
+    process group up every rank runs this loop data-parallel (see the
+    module's docstring); the batchers must draw the same rows in every
+    rank (the same seeds), and only rank 0 writes."""
     device = resolve_device(device)
+    mesh = make_mesh()
+    primary = mesh.rank == 0
+    start, size = mesh.global_batch_slice(batch_size)
     state = create_inverse_state(lr, lr_decay, decay_every_steps, weight_decay, seed,
                                  image_size, backbone_weights, device)
-    step_fn = make_inverse_step(state.model, dtype)
+    step_fn = make_inverse_step(state.model, dtype, mesh)
     eval_fn = make_inverse_eval(dtype)
-    os.makedirs(out_dir, exist_ok=True)
-    batches = prefetch_to_device(train_batcher.batches(batch_size), device)
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+    if mesh.data > 1:  # each rank decodes its rows of the global batch
+        source = (train_batcher.get_batch(rows[start:start + size])
+                  for rows in train_batcher.index_stream(batch_size))
+    else:
+        source = train_batcher.batches(batch_size)
+    batches = prefetch_to_device(source, device)
     it = 0
     try:
         for batch in itertools.islice(batches, num_steps):
-            metrics = step_fn(state, batch)
+            # every rank draws the global mask and keeps its rows
+            mask = state.dropout_mask(batch_size)[start:start + size] if mesh.data > 1 \
+                else None
+            metrics = step_fn(state, batch, mask)
             it += 1
             if it % validate_every == 0:
                 vloss, vacc = [], []
                 for _ in range(val_batches):
-                    vb = to_device(val_batcher.get_batch(batch_size=batch_size), device)
-                    loss, acc = eval_fn(state.model, vb)
-                    vloss.append(float(loss))
-                    vacc.append(float(acc))
-                if writer is not None:
+                    vb = shard_batch(mesh, val_batcher.get_batch(batch_size=batch_size))
+                    scalars = torch.stack(eval_fn(state.model, to_device(vb, device)))
+                    mesh.mean_over_data([scalars])
+                    vloss.append(float(scalars[0]))
+                    vacc.append(float(scalars[1]))
+                if writer is not None and primary:
                     writer.add_scalar("Loss/train", float(metrics["loss"]), it)
                     writer.add_scalar("Loss/val", float(np.mean(vloss)), it)
                     writer.add_scalar("Accuracy/train", float(metrics["accuracy"]), it)
                     writer.add_scalar("Accuracy/val", float(np.mean(vacc)), it)
-                save_checkpoint(out_dir, it, flax_state_dict(state))
+                if primary:
+                    save_checkpoint(out_dir, it, flax_state_dict(state))
     finally:
         batches.close()
-    if it % validate_every != 0:
+    if it % validate_every != 0 and primary:
         # always leave a final checkpoint (runs shorter than validate_every
         # otherwise save nothing)
         save_checkpoint(out_dir, it, flax_state_dict(state))
