@@ -199,7 +199,14 @@ prints no result line):
      the JAX package's file byte for byte, a second run writing nothing,
      then the filter pass over the dumped frames; (d) hd720.mp4 at fps
      0.5 and 0: frames decoded/s, written/s and the host split (demux, decode, conversion with its
-     copies, JPEG write);
+     copies, JPEG write); (e) decode_frames(fps=0.5, target=) (swscale's
+     scaled bilinear path, csrc/nv12_scale_rgb.cu) on hd720.mp4 to 224x224,
+     342x256 and 223x167 (odd width: full-width chroma) and on small.mp4 to
+     320x240, the launches counted from 0: one scaled launch a kept frame,
+     each frame bit-equal to the twin on (a)'s kept planes; small.mp4 to its
+     native size launching the NV12 kernel instead, JAX's frames; the
+     scaled kernel bit-equal to its twin on seeded 16 x 720p and 1 x 720p
+     -> 224x224, timed against its bound;
   15. what is left of the port: (a) captions: join_images with values
      pixel-equal to the committed golden (drawn by cv2; this machine has
      none), panorama_strip captioned by the published Q-net's scores at
@@ -225,8 +232,8 @@ prints no result line):
      1e-5 of the loss) of phase 5's, two identity launches a step, the
      checkpoint written once and loading into a plain TrainState equal to
      the run's, the process group gone after; every other CLI call of
-     the script names cuda:0, since with no device the train and evaluate
-     CLIs take every card of a machine of several; (b) step 5 profiled:
+     the script names cuda:0, since with no device the train, inverse and
+     evaluate CLIs take every card of a machine of several; (b) step 5 profiled:
      the host's NCCL ops (at least the gradients' all-reduce, an in-place
      sum that enqueues nothing on the card at one rank), and the
      checkpoint's gather profiled: at least one device-side nccl range
@@ -237,6 +244,9 @@ prints no result line):
      more only, the CLI spawning N x 1 and (N/2) x 2 fleets against one
      card (tools/fleet_cards.py: each step's loss and the step-30 update
      within twice a float32 one-card run's distance from the bf16 one;
+     then the inverse CLI with no device, one NCCL rank a card, against
+     cuda:0 alone: 12 steps at 224 px, B = 128, bf16, each scalar and the
+     final accuracy within 5% + 1e-3, one final line, the checkpoints;
      printed as not run on one card);
   17. a JSON line of every ported kernel, then the result line.
 Phase 1 also prints the libav* and NVDEC libraries `ldconfig -p` lists and
@@ -311,6 +321,7 @@ from video_dqn_tpu_torch.models.detector.roi_align import multilevel_roi_align
 from video_dqn_tpu_torch.models.qnet import build_qnet, init_qnet
 from video_dqn_tpu_torch.models.resnet import BatchNorm2d
 from video_dqn_tpu_torch.ops import nv12 as nv12_mod
+from video_dqn_tpu_torch.ops import nv12_scale as nv12_scale_mod
 from video_dqn_tpu_torch.ops import resize_normalize as rn
 from video_dqn_tpu_torch.ops.binning import observations_to_map_delta
 from video_dqn_tpu_torch.ops.geometry import get_camera_matrix
@@ -1591,7 +1602,7 @@ def inverse_run(tmp: Path, pairs: dict, cache: bool) -> dict:
     name = "cached" if cache else "decoding"
     with InverseSpy(sync_at=(10, INV_STEPS)) as timing:
         train_inverse_model.main(inverse_flags(pairs, tmp / f"{name}_timing", cache),
-                                 validate_every=10 ** 6, val_batches=0)
+                                 device=ONE_CARD, validate_every=10 ** 6, val_batches=0)
     ms = (timing.times[INV_STEPS] - timing.times[10]) / (INV_STEPS - 10) * 1e3
 
     out_dir = tmp / name
@@ -1601,7 +1612,7 @@ def inverse_run(tmp: Path, pairs: dict, cache: bool) -> dict:
     t0 = time.perf_counter()
     with InverseSpy() as spy:
         state, accuracy = train_inverse_model.main(
-            inverse_flags(pairs, out_dir, cache), validate_every=INV_VALIDATE,
+            inverse_flags(pairs, out_dir, cache), device=ONE_CARD, validate_every=INV_VALIDATE,
             val_batches=INV_VAL_BATCHES)
     wall = time.perf_counter() - t0
     launches = dict(rn.LAUNCHES)
@@ -3405,7 +3416,8 @@ def sim_loop(tmp: Path) -> dict:
             ["--train_data", train_npy, "--val_data", val_npy, "--image_root", image_root,
              "--image_size", str(IMAGE_SIZE), "--batch_size", str(INV_BATCH), "--num_steps",
              str(SIM_TRAIN_STEPS), "--lr", str(INV_LR), "--seed", str(SEED), "--out_dir",
-             str(inv_dir), "--cache-images"], validate_every=SIM_TRAIN_STEPS, val_batches=1)
+             str(inv_dir), "--cache-images"], device=ONE_CARD, validate_every=SIM_TRAIN_STEPS,
+            val_batches=1)
     inv_s = time.perf_counter() - t0
     inv_launches = dict(rn.LAUNCHES)
     scalars = read_metrics(str(inv_dir))
@@ -3843,6 +3855,13 @@ NV12_BYTES_PER_PIXEL = 4.5
 # the card's L2: a call that moves less stays in it across back-to-back
 # launches, so such a row is also timed with the L2 overwritten first
 L2_BYTES = 50 * 2 ** 20
+# decode_frames(target=) (swscale's scaled path): the Q-net's input and
+# two other targets from 720p (the last an odd width: full-width chroma)
+# and an upscale from small.mp4; the kernel timed at a batch of 16 and at
+# decode_frames' one frame a launch
+SCALE_TARGETS = (("hd720", (224, 224)), ("hd720", (342, 256)), ("hd720", (223, 167)),
+                 ("small", (320, 240)))
+SCALE_TIMED = ((16, 720, 1280, (224, 224)), (1, 720, 1280, (224, 224)))
 
 
 def decode_check(name: str, exp: dict) -> dict:
@@ -3976,6 +3995,89 @@ def nv12_kernel_rows(kept: list, exp: dict) -> list:
     return rows
 
 
+def scale_bytes(n: int, h: int, w: int, target) -> int:
+    """What the scaled conversion must move: the NV12 planes read once and
+    the RGB written once."""
+    return int(1.5 * n * w * h + 3 * n * target[0] * target[1])
+
+
+def scale_checks(planes: dict, exp: dict) -> dict:
+    """Phase 14 (e): decode_frames(fps=0.5, target=) on the card at
+    SCALE_TARGETS (the main path, counts from 0: one scaled launch a kept
+    frame, no NV12 launch; the 720p targets decoded side by side, one
+    thread each), each frame bit-equal to the twin on the same kept
+    planes (phase 14 (a)'s); the native size as a target launches the NV12
+    kernel instead and gives JAX's frames; then the kernel against its
+    twin on seeded batches at SCALE_TIMED, timed against its bound."""
+    nv12_mod.LAUNCHES.clear()
+    nv12_scale_mod.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SCALE_TARGETS)) as pool:
+        frames = dict(zip(SCALE_TARGETS, pool.map(
+            lambda job: list(video_mod.decode_frames(str(vfix.path(job[0])), 0.5, job[1])),
+            SCALE_TARGETS)))
+    seconds = time.perf_counter() - t0
+    launches = nv12_scale_mod.LAUNCHES["nv12_scale_rgb"]
+    count = sum(len(f) for f in frames.values())
+    if launches != count or nv12_mod.LAUNCHES["nv12_rgb"]:
+        raise AssertionError(f"decode_frames(target=): {launches} scaled and "
+                             f"{nv12_mod.LAUNCHES['nv12_rgb']} NV12 launches for {count} frames")
+    for (name, target), got in frames.items():
+        kept = planes[name]
+        h, w = kept[0][0].shape
+        tables = nv12_scale_mod.scale_tables(w, h, *target)
+        if len(got) != len(kept):
+            raise AssertionError(f"decode_frames({name}, target={target}): {len(got)} frames, "
+                                 f"{len(kept)} kept")
+        for k, ((y, uv), frame) in enumerate(zip(kept, got)):
+            want = nv12_scale_mod.nv12_scale_rgb_reference(y, uv, tables).cpu().numpy()
+            if frame.shape != (target[1], target[0], 3) or not np.array_equal(frame, want):
+                raise AssertionError(f"decode_frames({name}, target={target}) frame {k}: not "
+                                     "the twin's RGB of its planes")
+    nv12_mod.LAUNCHES.clear()
+    nv12_scale_mod.LAUNCHES.clear()
+    native = list(video_mod.decode_frames(str(vfix.path("small")), 0.5, (160, 120)))
+    if nv12_mod.LAUNCHES["nv12_rgb"] != len(native) or nv12_scale_mod.LAUNCHES or \
+            not np.array_equal(np.stack(native), exp["small_rgb"]):
+        raise AssertionError(f"decode_frames(small, target=(160, 120)): launches "
+                             f"{dict(nv12_mod.LAUNCHES)} {dict(nv12_scale_mod.LAUNCHES)}, or "
+                             "not JAX's frames")
+    log(f"[video] decode_frames(fps=0.5, target=) at {[f'{n} -> {t[0]}x{t[1]}' for n, t in SCALE_TARGETS]}: "
+        f"{count} frames, bit-equal to the scaled twin on the same kept planes, in {seconds:.3f} s "
+        f"({len(SCALE_TARGETS)} threads); nv12_scale_rgb launches {launches} (one a frame); the "
+        f"native size as a target launched nv12_rgb {len(native)} times, JAX's frames")
+    rows = []
+    for n, h, w, target in SCALE_TIMED:
+        y, uv = nv12_inputs(n, h, w, SEED)
+        tables = nv12_scale_mod.scale_tables(w, h, *target)
+        got = nv12_scale_mod.nv12_scale_rgb(y, uv, tables)
+        want = nv12_scale_mod.nv12_scale_rgb_reference(y, uv, tables)
+        if not torch.equal(got, want):
+            err = int((got.int() - want.int()).abs().max().item())
+            raise AssertionError(f"nv12_scale_rgb {n}x{w}x{h} -> {target}: max |kernel - twin| "
+                                 f"{err}")
+        call = lambda: nv12_scale_mod.nv12_scale_rgb(y, uv, tables)  # noqa: E731
+        event_ms = queued_ms(call)
+        device_ms = kernel_device_ms(call, kernels=("nv12_scale_rgb",))
+        ms = device_ms if device_ms is not None else event_ms
+        plain_ms = queued_ms(lambda: nv12_scale_mod.nv12_scale_rgb_reference(y, uv, tables),
+                             iters=10)
+        n_bytes = scale_bytes(n, h, w, target)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": [n, h, w], "target": list(target), "filter_sizes": list(tables.sizes),
+               "max_abs_err": 0, "ms": ms,
+               "ms_source": "profiler" if device_ms is not None else "queued events",
+               "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": "bytes", "share_of_bound": bound_ms / ms, "bytes": n_bytes,
+               "library_ms": None}
+        log(f"[kernel] nv12_scale_rgb {n}x{w}x{h} -> {target[0]}x{target[1]} (filters "
+            f"{tables.sizes}): bit-equal to its twin; device {ms:.5f} ms ({row['ms_source']}), "
+            f"queued events {event_ms:.5f} ms; plain {plain_ms:.4f} ms; bound {bound_ms:.5g} ms "
+            f"(bytes), {row['share_of_bound']:.1%} of it")
+        rows.append(row)
+    return {"launches": launches, "frames": count, "seconds": seconds, "rows": rows}
+
+
 def dump_cli(tmp: Path, exp: dict) -> dict:
     """The -d CLI on small.mp4 and hd720.mp4 (the main path, launches
     counted from 0): JPEGs equal to the JAX package's files, a second run
@@ -4052,14 +4154,18 @@ def extraction_rate(tmp: Path, fps: float, device: str = "cuda") -> dict:
 
 def video_path() -> dict:
     """Phase 14: (a) decoding, (b) the NV12 -> RGB kernel, (c) the -d CLI,
-    (d) rates. launches are the CLI run's, counted from 0."""
+    (d) rates, (e) decode_frames(target=) and the scaled kernel. launches
+    are the CLI run's, counted from 0, and (e)'s decode_frames runs'."""
     t0 = time.perf_counter()
     exp = vfix.expected()
     decoded = {name: decode_check(name, exp) for name in vfix.VIDEOS}
     if decoded["small"]["hashes"] != decoded["small_fragmented"]["hashes"]:
         raise AssertionError("small.mp4 and its fragmented copy decode to other frames")
     features = feature_checks(exp)
-    kernel_rows = nv12_kernel_rows([(n, d.pop("planes")) for n, d in decoded.items()], exp)
+    planes = {n: d.pop("planes") for n, d in decoded.items()}
+    kernel_rows = nv12_kernel_rows(list(planes.items()), exp)
+    scale = scale_checks(planes, exp)
+    del planes
     _build.BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp_name:
         tmp = Path(tmp_name)
@@ -4071,8 +4177,9 @@ def video_path() -> dict:
     log(f"[video] the conversion a kept 720p frame: the card's round trip {card:.4f} ms, the plain "
         f"twin on the host {host:.4f} ms ({host / card:.1f}x)")
     out = {"decoded": {n: {k: v for k, v in d.items() if k != "hashes"} for n, d in decoded.items()},
-           "features": features, "kernel": kernel_rows, "cli": cli, "rates": rates,
-           "launches": cli["launches"]}
+           "features": features, "kernel": kernel_rows, "scale": scale, "cli": cli,
+           "rates": rates,
+           "launches": {**cli["launches"], "nv12_scale_rgb": scale["launches"]}}
     out["seconds"] = time.perf_counter() - t0
     log(f"[video] phase 14 in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
@@ -4753,24 +4860,121 @@ def fleet_basic(tmp: Path, tables) -> dict:
             "identity": sum(n for (path, _), n in runs[True][1].items() if path == "identity")}
 
 
+# phase 16 (d)'s inverse fleet: the CLI at 224 px and B = INV_BATCH, bf16,
+# against one card of the same flags. The bf16 step rounds another way on
+# each rank's rows; so does a float32 run on one card. Each scalar within
+# 5% + 1e-3 of one card's, or within twice the float32 run's largest
+# distance from one card's over the scalars of its kind (losses,
+# accuracies), as tools/fleet_cards.py bounds the Q-net's fleet, where
+# that is wider: 12 steps leave the 3 actions' logits near a tie, and
+# bf16's rounding flips predictions (on 4 cards 19 of 256 at step 12,
+# where the losses stayed within 5%)
+INV_FLEET_STEPS, INV_FLEET_EVERY, INV_FLEET_VAL = 12, 6, 2
+INV_FLEET_RTOL, INV_FLEET_ATOL, INV_FLEET_SPREAD = 0.05, 1e-3, 2.0
+# the CLI with no device, in a process of its own (its ranks print to its
+# standard output, which the phase reads)
+INVERSE_FLEET = """
+import json, sys
+from video_dqn_tpu_torch import train_inverse_model
+if train_inverse_model.main(json.loads(sys.argv[1]), validate_every=int(sys.argv[2]),
+                            val_batches=int(sys.argv[3])) is not None:
+    raise SystemExit("the inverse CLI ran one rank on a machine of several cards")
+"""
+
+
+def inverse_fleet(tmp: Path) -> dict:
+    """Phase 16 (d), with two cards or more: the inverse CLI with no device
+    spawns one NCCL rank a card; its scalars and final accuracy against a
+    one-card run of the same flags, within INV_FLEET_RTOL and
+    INV_FLEET_ATOL or INV_FLEET_SPREAD times a float32 one-card run's
+    largest distance over its kind; each scalar logged once, the
+    checkpoints of the cadence, one final line."""
+    n = torch.cuda.device_count()
+    npy, root = torch_qdata.make_pairs(tmp / "inv_fleet_pairs", rows=INV_PAIRS,
+                                       states=INV_STATES, seed=SEED)
+
+    def flags(out: Path) -> list:
+        return ["--train_data", npy, "--val_data", npy, "--image_root", root, "--image_size",
+                str(IMAGE_SIZE), "--batch_size", str(INV_BATCH), "--num_steps",
+                str(INV_FLEET_STEPS), "--lr", str(INV_LR), "--seed", str(SEED), "--out_dir",
+                str(out), "--cache-images"]
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", INVERSE_FLEET, json.dumps(flags(tmp / "inv_n")),
+                           str(INV_FLEET_EVERY), str(INV_FLEET_VAL)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    fleet_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the inverse CLI's fleet failed:\n{proc.stdout[-3000:]}"
+                             f"{proc.stderr[-6000:]}")
+    finals = [line for line in proc.stdout.splitlines()
+              if line.startswith("Final val accuracy: ")]
+    accuracy, one_s = {}, 0.0
+    for run, dtype in (("inv_1", torch.bfloat16), ("inv_f32", torch.float32)):
+        t0 = time.perf_counter()
+        saved, train_inverse_model.COMPUTE_DTYPE = train_inverse_model.COMPUTE_DTYPE, dtype
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, accuracy[run] = train_inverse_model.main(
+                    flags(tmp / run), device=ONE_CARD, validate_every=INV_FLEET_EVERY,
+                    val_batches=INV_FLEET_VAL)
+        finally:
+            train_inverse_model.COMPUTE_DTYPE = saved
+        one_s = one_s or time.perf_counter() - t0
+    if len(finals) != 1:
+        raise AssertionError(f"the inverse fleet printed {len(finals)} final lines")
+    # (fleet, one card, float32 one card) of each scalar; the final line's
+    # accuracy has 4 decimals
+    rows = {"final": ([float(finals[0].split()[-1])], [accuracy["inv_1"]],
+                      [accuracy["inv_f32"]])}
+    steps = list(range(INV_FLEET_EVERY, INV_FLEET_STEPS + 1, INV_FLEET_EVERY))
+    for tag in ("Loss/train", "Loss/val", "Accuracy/train", "Accuracy/val"):
+        runs = [read_metrics(str(tmp / run), tag) for run in ("inv_n", "inv_1", "inv_f32")]
+        if any([r["step"] for r in got] != steps for got in runs):
+            raise AssertionError(f"inverse fleet {tag}: fleet, one card, float32 {runs}")
+        rows[tag] = tuple([r["value"] for r in got] for got in runs)
+    spread = {kind: max(abs(c - b) for k, (_, one, f32) in rows.items()
+                        if k.startswith("Loss") == (kind == "loss") for b, c in zip(one, f32))
+              for kind in ("loss", "accuracy")}
+    bad = {k: v for k, v in rows.items() if any(
+        abs(a - b) > max(INV_FLEET_RTOL * abs(b) + INV_FLEET_ATOL,
+                         INV_FLEET_SPREAD * spread["loss" if k.startswith("Loss") else "accuracy"])
+        for a, b in zip(v[0], v[1]))}
+    names = sorted(p.name for p in (tmp / "inv_n").glob("sample*.ckpt"))
+    want_names = sorted(f"sample{k}.ckpt" for k in steps)
+    if bad or names != want_names:
+        raise AssertionError(f"inverse fleet on {n} cards: beyond {INV_FLEET_RTOL:.0%} + "
+                             f"{INV_FLEET_ATOL} and {INV_FLEET_SPREAD} x the float32 run's "
+                             f"distance {spread} of one card's {list(bad)}, or checkpoints "
+                             f"{names}; (fleet, one card, float32) {json.dumps(rows)}")
+    log(f"[parallel] (d) the inverse CLI on {n} cards (one NCCL rank a card, spawned) against "
+        f"one card, {INV_FLEET_STEPS} steps at B = {INV_BATCH}, {IMAGE_SIZE} px, bf16: "
+        f"(fleet, one card, one card float32) {json.dumps(rows)}, the float32 run's largest "
+        f"distances {spread}; checkpoints {names}, one final line; {fleet_s:.1f} s (its "
+        f"processes' start-up included) and {one_s:.1f} s")
+    return {"cards": n, "scalars": rows, "spread": spread, "fleet_s": fleet_s,
+            "one_card_s": one_s}
+
+
 def multi_card(tmp: Path) -> dict:
-    """Phase 16 (d), with two cards or more only: the CLI without
+    """Phase 16 (d), with two cards or more only: the training CLI without
     --coordinator spawns one rank a card, N x 1 and (N/2) x 2, against one
     card on the committed fixture's data.feather
     (video_dqn_tpu_torch/tools/fleet_cards.py: each step's loss and the
     step-30 update within twice the distance of a float32 one-card run from
-    the bf16 one, ms/step of each)."""
+    the bf16 one, ms/step of each); then the inverse CLI's fleet
+    (inverse_fleet)."""
     n = torch.cuda.device_count()
     if n < 2:
         log(f"[parallel] (d) not run: {n} card on this machine; the N x 1 and (N/2) x 2 "
-            "fleets need two cards or more")
+            "fleets of the training CLI and the inverse CLI's fleet need two cards or more")
         return {"run": False, "cards": n}
     with contextlib.redirect_stdout(io.StringIO()) as said:
         out = fleet_cards.compare(tmp / "cards", torch_qdata.FEATHER)
     for line in said.getvalue().splitlines():
         if line.startswith("[fleet]"):
             log(f"[parallel] (d) {line}")
-    return {"run": True, **out}
+    return {"run": True, **out, "inverse": inverse_fleet(tmp)}
 
 
 def parallel_path(phase5: dict) -> dict:
@@ -4800,14 +5004,16 @@ PHASES = ("serve", "train", "real_data", "inverse", "label", "eval", "eval_mesh"
 
 
 def counted_phase(fn, *args) -> tuple:
-    """Runs one phase with the NMS and NV12 -> RGB counters at 0 and
-    returns its result and those counters over the whole phase: the
-    launches of a phase whose main path runs neither kernel (the phases
-    that run one read its count on their main path themselves)."""
+    """Runs one phase with the NMS and the two NV12 -> RGB counters at 0
+    and returns its result and those counters over the whole phase: the
+    launches of a phase whose main path runs none of those kernels (the
+    phases that run one read its count on their main path themselves)."""
     det_boxes.LAUNCHES.clear()
     nv12_mod.LAUNCHES.clear()
+    nv12_scale_mod.LAUNCHES.clear()
     out = fn(*args)
-    return out, {"nms": det_boxes.LAUNCHES["nms"], "nv12_rgb": nv12_mod.LAUNCHES["nv12_rgb"]}
+    return out, {"nms": det_boxes.LAUNCHES["nms"], "nv12_rgb": nv12_mod.LAUNCHES["nv12_rgb"],
+                 "nv12_scale_rgb": nv12_scale_mod.LAUNCHES["nv12_scale_rgb"]}
 
 
 def main() -> None:
@@ -4832,7 +5038,7 @@ def main() -> None:
     res["parallel"], whole["parallel"] = counted_phase(parallel_path, res["train"])
     # each phase's main-path launches: its own count where it reads one
     # (every phase the resize kernel's; the detector, the front end and
-    # video the NMS's; video the NV12 kernel's), else the whole phase's
+    # video the NMS's; video the two NV12 kernels'), else the whole phase's
     launches = {p: {**whole[p], **res[p]["launches"]} for p in PHASES}
 
     def per_phase(key: str) -> dict:
@@ -4892,6 +5098,23 @@ def main() -> None:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shapes": res["video"]["kernel"],
+    })
+    # the main path's call: decode_frames' one 720p frame to the Q-net's 224^2
+    main_row = next(r for r in res["video"]["scale"]["rows"] if r["shape"][0] == 1)
+    kernels.append({
+        "name": "nv12_scale_rgb",
+        "route": "cuda",
+        "source": "video_dqn_tpu_torch/csrc/nv12_scale_rgb.cu",
+        "replaces": "native/decode/decode.cc:111 (emit: swscale's scaled bilinear path to "
+                    "RGB24; not a TPU kernel)",
+        **per_phase("nv12_scale_rgb"),
+        "max_abs_err": 0.0,
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "shapes": res["video"]["scale"]["rows"],
     })
     for p in PHASES:
         log(json.dumps({p: res[p]}))

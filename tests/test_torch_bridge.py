@@ -19,6 +19,7 @@ from video_dqn_tpu_torch.models.qnet import HabitatDQN, head_hw
 from tests.test_models import randomize
 from tests.torch_ref import TorchHabitatDQN
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 # (extra_capacity, panorama, image size): 128 px gives a 2x2 head map
 CASES = [(True, False, 128), (True, True, 128), (False, False, 64)]

@@ -31,6 +31,7 @@ from video_dqn_tpu_torch.train.dqn import (create_train_state, flax_state_dict,
                                            load_flax_state_dict, make_train_step, run_train)
 from tests.test_torch_train import SIZE, configs, randomize_tree, synthetic_batch, torch_batch
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 STEP = 7
 

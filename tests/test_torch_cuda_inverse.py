@@ -1,5 +1,6 @@
 """The port's inverse-action trainer and labeler on the card, held to the
-same code on the CPU.
+same code on the CPU; the CLI's fleet on every card of a machine of two
+or more.
 
 Marked `cuda`: without a CUDA device each test skips. This file imports
 neither jax nor the JAX package, PIL nor pandas, so it also runs where
@@ -7,6 +8,11 @@ only the port is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda_inverse.py
 """
+
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -145,14 +151,15 @@ def test_card_labels_match_cpu_labels(tmp_path):
 
 @pytest.mark.cuda
 def test_cli_trains_on_the_card(tmp_path):
-    """The training CLI at 64 px, B = 16, 6 steps, validating every 3: the
+    """The training CLI at 64 px, B = 16, 6 steps, validating every 3, on
+    cuda:0 (with no device named it would take every card): the
     checkpoints, finite scalars, one bf16 identity launch a train step."""
     npy, root = torch_qdata.make_pairs(tmp_path, rows=64, states=32)
     rn.LAUNCHES.clear()
     state, accuracy = train_inverse_model.main(
         ["--train_data", npy, "--val_data", npy, "--image_root", root, "--image_size", "64",
          "--batch_size", "16", "--num_steps", "6", "--out_dir", str(tmp_path / "run"),
-         "--cache-images"], validate_every=3, val_batches=2)
+         "--cache-images"], device="cuda:0", validate_every=3, val_batches=2)
     assert state.step == 6 and 0.0 <= accuracy <= 1.0
     assert sorted(p.name for p in (tmp_path / "run").glob("sample*.ckpt")) == \
         ["sample3.ckpt", "sample6.ckpt"]
@@ -160,3 +167,61 @@ def test_cli_trains_on_the_card(tmp_path):
     assert len(scalars) == 8 and all(np.isfinite(r["value"]) for r in scalars)
     # 6 steps, 2 validations of 2 batches, 10 final batches
     assert dict(rn.LAUNCHES) == {("identity", "bfloat16"): 6 + 4 + 10}
+
+
+FLEET = """
+import json, sys
+from video_dqn_tpu_torch import train_inverse_model
+assert train_inverse_model.main(json.loads(sys.argv[1]), validate_every=3,
+                                val_batches=4) is None
+"""
+
+
+@pytest.mark.cuda
+def test_cli_fleet_on_every_card(tmp_path, monkeypatch):
+    """With no device named on a machine of two cards or more, the CLI
+    spawns one NCCL rank a card (in a process of its own here, whose
+    output the test reads): 64 px, B = 64, 6 steps, validating every 3
+    over 4 batches, bf16, against cuda:0 alone; each scalar and the final
+    accuracy within 5% + 1e-3 of one card's, or within twice a float32
+    one-card run's largest distance from it over the scalars of their kind
+    where that is wider (each rank's bf16 step rounds its own rows, and
+    near-tied predictions flip: chip_smoke.py phase 16 (d)); logged once,
+    the checkpoints of the cadence, one final line."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"the fleet needs two cards or more; {cards} visible")
+    npy, root = torch_qdata.make_pairs(tmp_path, rows=256, states=64)
+
+    def flags(out):
+        return ["--train_data", npy, "--val_data", npy, "--image_root", root, "--image_size",
+                "64", "--batch_size", "64", "--num_steps", "6", "--out_dir", str(out),
+                "--cache-images"]
+
+    proc = subprocess.run([sys.executable, "-c", FLEET, json.dumps(flags(tmp_path / "fleet"))],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-6000:]
+    finals = [line for line in proc.stdout.splitlines()
+              if line.startswith("Final val accuracy: ")]
+    accuracy = {}
+    for run, dtype in (("one", torch.bfloat16), ("f32", torch.float32)):
+        monkeypatch.setattr(train_inverse_model, "COMPUTE_DTYPE", dtype)
+        _, accuracy[run] = train_inverse_model.main(flags(tmp_path / run), device="cuda:0",
+                                                    validate_every=3, val_batches=4)
+    assert len(finals) == 1
+    rows = {"final": ([float(finals[0].split()[-1])], [accuracy["one"]], [accuracy["f32"]])}
+    for tag in ("Loss/train", "Loss/val", "Accuracy/train", "Accuracy/val"):
+        runs = [read_metrics(str(tmp_path / run), tag) for run in ("fleet", "one", "f32")]
+        assert all([r["step"] for r in got] == [3, 6] for got in runs), tag
+        rows[tag] = [[r["value"] for r in got] for got in runs]
+    # the float32 run's largest distance from one card's, losses and accuracies apart
+    spread = {kind: max(abs(c - b) for tag, (_, one, f32) in rows.items()
+                        if tag.startswith("Loss") == kind for b, c in zip(one, f32))
+              for kind in (True, False)}
+    for tag, (fleet, one, _) in rows.items():
+        for a, b in zip(fleet, one):
+            assert abs(a - b) <= max(0.05 * abs(b) + 1e-3, 2 * spread[tag.startswith("Loss")]), \
+                (tag, spread, rows)
+    assert sorted(p.name for p in (tmp_path / "fleet").glob("sample*.ckpt")) == \
+        ["sample3.ckpt", "sample6.ckpt"]

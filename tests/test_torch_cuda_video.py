@@ -6,7 +6,11 @@ take the kernel's scalar path, and on planes that do not start on 16
 bytes (the wrapper copies them first); small.mp4's RGB equal to the JAX package's frames, the host
 decoder's frames on this machine equal to libavcodec's, and the -d CLI
 writing the JAX package's JPEG files with one kernel launch a batch of up
-to 16 kept frames.
+to 16 kept frames. The scaled kernel (csrc/nv12_scale_rgb.cu, swscale's
+bilinear scaler) against its twin, exact too, on seeded batches of 16 at
+1280x720 to the Q-net's 224x224 and to other targets, from YouTube's
+854-wide 480p, on the odd-width path, on 0/255 planes, and
+decode_frames(target=) launching it once a kept frame.
 
 Marked `cuda`: without a CUDA device each test skips. This file imports
 neither jax nor the JAX package, so it also runs where only the port is
@@ -25,7 +29,8 @@ import torch
 from video_dqn_tpu_torch import extract_frames
 from video_dqn_tpu_torch.data.h264 import decoded_frames
 from video_dqn_tpu_torch.data.mp4 import Mp4Video
-from video_dqn_tpu_torch.ops import nv12
+from video_dqn_tpu_torch.data import video
+from video_dqn_tpu_torch.ops import nv12, nv12_scale
 # pytest puts tests/ on the path; `from tests import` could find another
 # installed `tests` package on the card's machine
 import torch_port_util  # noqa: F401  (caps torch threads per worker)
@@ -137,3 +142,49 @@ def test_dump_cli_on_the_card(tmp_path):
     assert [vfix.file_sha256(f) for f in files] == EXP["small_jpeg_sha256"].tolist()
     with contextlib.redirect_stdout(io.StringIO()):
         assert extract_frames.main(["-d", "--location", str(videos), "--frames", str(frames)]) == []
+
+
+# (frames, H, W) -> (w, h): the Q-net's input and others from 720p, a
+# source width off 16 (854), an upscale, the odd-width path (full-width
+# chroma) and one luma tap (yuv2packed1)
+SCALES = [((16, 720, 1280), (224, 224)), ((16, 720, 1280), (342, 256)),
+          ((16, 720, 1280), (223, 167)), ((1, 720, 1280), (224, 224)),
+          ((4, 480, 854), (224, 224)), ((3, 120, 160), (320, 240)), ((3, 120, 160), (63, 47)),
+          ((3, 120, 160), (161, 121)), ((2, 64, 96), (97, 64)), ((2, 64, 96), (96, 63))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, target", SCALES,
+                         ids=["{}x{}x{}-{}x{}".format(*s, *t) for s, t in SCALES])
+def test_scale_kernel_equals_twin(shape, target):
+    n, h, w = shape
+    tables = nv12_scale.scale_tables(w, h, *target)
+    for y, uv in (seeded_planes(shape), [p // 128 * 255 for p in seeded_planes(shape, seed=1)]):
+        nv12_scale.LAUNCHES.clear()
+        got = nv12_scale.nv12_scale_rgb(y, uv, tables)
+        torch.cuda.synchronize()
+        assert nv12_scale.LAUNCHES["nv12_scale_rgb"] == 1
+        assert got.shape == (n, target[1], target[0], 3)
+        assert torch.equal(got, nv12_scale.nv12_scale_rgb_reference(y, uv, tables))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", [(80, 60), (63, 47)])
+def test_decode_frames_resizes_on_the_card(target):
+    """One scaled launch a kept frame, each frame the twin of its committed
+    planes; the native size launches the NV12 kernel instead."""
+    tables = nv12_scale.scale_tables(160, 120, *target)
+    nv12.LAUNCHES.clear()
+    nv12_scale.LAUNCHES.clear()
+    frames = list(video.decode_frames(str(vfix.path("small")), target=target))
+    assert len(frames) == len(EXP["small_keep"])
+    assert nv12_scale.LAUNCHES["nv12_scale_rgb"] == len(frames) and not nv12.LAUNCHES
+    for k, frame in enumerate(frames):
+        want = nv12_scale.nv12_scale_rgb_reference(torch.from_numpy(EXP["small_nv12_y"][k]),
+                                                   torch.from_numpy(EXP["small_nv12_uv"][k]),
+                                                   tables)
+        np.testing.assert_array_equal(frame, want.numpy())
+    nv12_scale.LAUNCHES.clear()
+    native = list(video.decode_frames(str(vfix.path("small")), target=(160, 120)))
+    assert nv12.LAUNCHES["nv12_rgb"] == len(native) and not nv12_scale.LAUNCHES
+    np.testing.assert_array_equal(np.stack(native), EXP["small_rgb"])

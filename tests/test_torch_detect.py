@@ -28,6 +28,7 @@ from video_dqn_tpu_torch.eval.fixtures import make_episode_set
 from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults
 from video_dqn_tpu_torch.sim.gibson import relevant_locations
 from tests import torch_port_util, torch_qdata
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SIZE = 64
 

@@ -16,6 +16,7 @@ from video_dqn_tpu_torch.data.device_dataset import TABLE_KEYS, DeviceDataset
 from video_dqn_tpu_torch.data.tables import TableSource, synthetic_video_tables
 from video_dqn_tpu_torch.train.dqn import run_train
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SIZE, BATCH = 64, 8
 

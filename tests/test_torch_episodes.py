@@ -29,6 +29,7 @@ from video_dqn_tpu_torch.train.inverse import create_inverse_state, flax_state_d
 from video_dqn_tpu_torch.core.checkpoint import save_checkpoint
 from tests import torch_qdata
 from tests.test_torch_inverse import flax_vars, port_model
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SIZE = 128
 MARGIN = 1e-3  # labels are compared where the float32 calibrated margin is this wide

@@ -20,6 +20,7 @@ from tests.test_batched_eval import SIZE, build_fixtures, fresh_env
 from tests.test_eval import eval_cfg
 from tests import torch_port_util
 from tests.torch_port_util import qnet_pair
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SCORE_ATOL = 1e-4
 SPL_ATOL = 1e-5

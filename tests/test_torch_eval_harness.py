@@ -33,6 +33,7 @@ from video_dqn_tpu_torch.eval.policy_config import get_eval_defaults, load_file,
 from video_dqn_tpu_torch.eval.runner import build_detector_from_config, run_policy
 from tests.test_batched_eval import SIZE, build_fixtures
 from tests import torch_port_util  # caps torch threads per worker
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -23,6 +23,7 @@ from video_dqn_tpu_torch.data.jpeg import load_images, save_images
 from video_dqn_tpu_torch.models.alexnet_places import load_alexnet_places
 from video_dqn_tpu_torch.models.detector.inference import load_detector
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests import torch_qdata
 from tests.torch_detector_util import seeded_maskrcnn_state_dict
 from tests.torch_frontend_util import seeded_alexnet_state_dict

@@ -28,6 +28,7 @@ from video_dqn_tpu_torch.models.alexnet_places import AlexNetPlaces365, load_ale
 from video_dqn_tpu_torch.models.bridge import alexnet_state_dict_from_flax
 from video_dqn_tpu_torch.ops.resize_normalize import resize_normalize
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests import torch_qdata
 from tests.torch_frontend_util import (FC8, FRONT_SEED, INDOOR_BF16_ATOL, JAX_BF16_MAX_MOVE,
                                        JAX_BF16_SWAP_SHARE, bf16_against_f32,

@@ -104,7 +104,8 @@ def test_sources_name_no_jax():
     assert {"jpeg_decode.cc", "jpeg_encode.cc", "lz4_frame.cc", "fmm.cc", "raycast.cc",
             "mesh.cc", "resize_normalize.cu", "nms.cu", "nv12_rgb.cu", "mp4_demux.cc",
             "h264_decode.cc", "h264_tables.h", "mp4.py", "h264.py", "video.py",
-            "nv12.py", "mesh.py", "sharding.py", "multihost.py"} <= {f.name for f in files}
+            "nv12.py", "mesh.py", "sharding.py", "multihost.py", "nv12_scale.py",
+            "nv12_scale_rgb.cu", "train_inverse_model.py"} <= {f.name for f in files}
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -124,6 +125,13 @@ def test_forbidden_pattern_spares_the_port_name():
     assert LIBAV_INCLUDE.search("#include <libavcodec/avcodec.h>")
     assert LIBAV_INCLUDE.search('  # include "libswscale/swscale.h"')
     assert not LIBAV_INCLUDE.search('#include "h264_tables.h"')
+
+
+def on_two_cards(fn, *args):
+    """fn(*args) where torch counts two cards (the multi-rank branches)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 2)
+        return fn(*args)
 
 
 CFG = SimpleNamespace(VALUE_LEARNING=False, ONE_ACTION=False,
@@ -147,6 +155,7 @@ EVAL_CFG = get_eval_defaults()
     lambda: create_inverse_state(image_size=64),
     lambda: run_inverse_train(object(), object(), "no_such_folder"),
     lambda: train_inverse_cli(["--train_data", "no_such.npy"]),
+    lambda: on_two_cards(train_inverse_cli, ["--train_data", "no_such.npy"]),
     lambda: make_inverse_labeler(InverseActionModel(64)),
     lambda: process_episodes_cli(["--location", "no_such_folder"]),
     lambda: DepthMapperAndPlanner(),
@@ -162,6 +171,7 @@ EVAL_CFG = get_eval_defaults()
     lambda: extract_frames_cli(["--frames", "no_such_folder", "--allow-passthrough"]),
     lambda: extract_frames_cli(["-d", "--location", "no_such_folder"]),
     lambda: decode_frames("no_such.mp4"),
+    lambda: decode_frames("no_such.mp4", target=(224, 224)),
     lambda: extract_all_frames("no_such_folder", "no_such_folder"),
     lambda: make_allclass_scorer(HabitatDQN(panorama=False, image_size=64)),
     lambda: build_value_maps(HabitatDQN(panorama=False, image_size=64), "no_such_folder",
@@ -175,11 +185,13 @@ EVAL_CFG = get_eval_defaults()
 ], ids=["build_qnet", "load_eval_model", "make_model_scorer",
         "make_multiclass_scorer", "create_train_state", "DeviceDataset", "run_train",
         "run_train_from_config", "train_q_network_main", "create_inverse_state",
-        "run_inverse_train", "train_inverse_model_main", "make_inverse_labeler",
+        "run_inverse_train", "train_inverse_model_main", "train_inverse_model_fleet",
+        "make_inverse_labeler",
         "process_episodes_main", "DepthMapperAndPlanner", "run_policy",
         "run_policy_batched", "evaluate_main", "evaluate_main_furnished", "results_main",
         "load_detector", "detect_real_videos_main", "make_indoor_classifier",
         "load_alexnet_places", "extract_frames_main", "extract_frames_dump", "decode_frames",
+        "decode_frames_target",
         "extract_all_frames", "make_allclass_scorer",
         "build_value_maps", "visualize_value_main", "visualize_panorama_main",
         "fleet_initialize", "train_q_network_fleet", "fleet_cards_main"])

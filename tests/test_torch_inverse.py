@@ -39,6 +39,7 @@ from video_dqn_tpu_torch.train.inverse import (create_inverse_state, exponential
                                                load_inverse_checkpoint, make_inverse_step)
 from tests import torch_qdata
 from tests.torch_port_util import randomize_tree
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests.torch_ref import TorchInverseModel
 
 LR, DECAY, EVERY, WD = 1e-3, 0.9, 2, 1e-2

@@ -48,6 +48,7 @@ from video_dqn_tpu_torch.data.gibson_pairs import GibsonPairBatcher
 from video_dqn_tpu_torch.train.inverse import create_inverse_state, run_inverse_train
 from video_dqn_tpu_torch.train.inverse import flax_state_dict as inverse_tree
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests import torch_qdata
 from tests.torch_parallel_ranks import launch
 

@@ -29,6 +29,7 @@ from video_dqn_tpu_torch.core.metrics import read_metrics
 from video_dqn_tpu_torch.parallel.multihost import free_port
 from video_dqn_tpu_torch.train_q_network import main
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS, EVERY, SYNC = 24, 8, 10

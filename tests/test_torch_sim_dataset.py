@@ -27,6 +27,7 @@ from video_dqn_tpu_torch.data.schema import validate_schema
 from video_dqn_tpu_torch.eval.fixtures import FakeHouse, make_furnished_house
 from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 GOAL = (4.25, 0.0, 6.75)  # a free cell of the default maze, on the first walk
 

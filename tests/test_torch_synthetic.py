@@ -30,6 +30,7 @@ from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.synthetic import make_synthetic_dataset, synthetic_batch
 from video_dqn_tpu_torch.ops import morphology
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 
 @pytest.fixture(scope="module")

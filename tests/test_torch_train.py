@@ -36,6 +36,7 @@ from video_dqn_tpu_torch.train.dqn import (PHASES, create_train_state, flax_stat
                                            load_flax_state_dict, make_loss_fn,
                                            make_train_step)
 from tests.torch_port_util import randomize_tree
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SIZE, BATCH, LR = 96, 4, 1e-4
 LOSS_RTOL = 1e-4

@@ -25,6 +25,7 @@ from video_dqn_tpu_torch.sim.fake_env import FakeNavEnv
 from video_dqn_tpu_torch.sim.gibson import CLASS_LABELS
 from video_dqn_tpu_torch.viz.render_grid import render_grid
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests.test_torch_checkpoint import jax_template, leaves_equal
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -5,7 +5,8 @@ frames JAX's decode_frames(fps=0.5) returns; the twin equals JAX's frames
 and swscale itself, frame by frame and as a batch; the CPU seam, fed the
 committed NV12 planes, and the whole path write the bytes JAX's
 extract_frames writes, one conversion a batch of kept frames; decode_frames
-gives JAX's frames, from the plain and the fragmented file alike; the
+gives JAX's frames, from the plain and the fragmented file alike, and
+resizes as swscale's scaled path (tests/test_torch_video_scale.py); the
 --dump CLI and extract_all_frames resume; and device=None needs the card
 (tests/test_torch_cuda_video.py runs the kernel there)."""
 
@@ -25,6 +26,7 @@ from video_dqn_tpu_torch import extract_frames as cli
 from video_dqn_tpu_torch.data import video
 from video_dqn_tpu_torch.data.mp4 import Mp4Video
 from video_dqn_tpu_torch.ops.nv12 import nv12_to_rgb, nv12_to_rgb_reference
+from video_dqn_tpu_torch.ops.nv12_scale import nv12_scale_rgb_reference, scale_tables
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
 from tests.torch_video_fixture import display_seconds, expected, feature_path, file_sha256, path
 
@@ -292,5 +294,12 @@ def test_the_card_is_the_default(monkeypatch, entry):
 
 
 def test_decode_frames_resize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        video.decode_frames(str(path("small")), target=(80, 60), device="cpu")
+    """The resize fused into decoding is swscale's scaled path
+    (ops/nv12_scale.py; tests/test_torch_video_scale.py holds it to JAX):
+    each kept frame is the scaled twin of its committed NV12 planes."""
+    tables = scale_tables(160, 120, 80, 60)
+    frames = list(video.decode_frames(str(path("small")), target=(80, 60), device="cpu"))
+    assert len(frames) == len(EXP["small_keep"])
+    for k, frame in enumerate(frames):
+        assert frame.shape == (60, 80, 3)
+        np.testing.assert_array_equal(frame, nv12_scale_rgb_reference(*planes(k), tables).numpy())

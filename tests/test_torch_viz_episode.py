@@ -44,6 +44,7 @@ from video_dqn_tpu_torch.sim.gibson import CLASS_LABELS
 from video_dqn_tpu_torch.train.dqn import create_train_state, flax_state_dict
 from video_dqn_tpu_torch.viz import colormaps
 from tests import torch_port_util
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 from tests.test_torch_eval_harness import assert_same_logs, cfgs, read_results
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -26,6 +26,7 @@ from video_dqn_tpu_torch.data.qlearning import QLearningBatcher
 from video_dqn_tpu_torch.data.workers import LABEL_KEYS, parallel_batches
 from video_dqn_tpu_torch.train.dqn import run_train
 from tests import torch_port_util  # noqa: F401  (caps torch threads per worker)
+from tests.torch_port_util import free_passed_tmp_path  # noqa: F401  (frees a passed test's tmp_path)
 
 SIZE, BATCH, SEED, SAMPLES = 32, 4, 7, 5
 

@@ -7,7 +7,11 @@ port only.
 torch thread, joining one gloo group through a FileStore under `tmp`
 (never a fixed port: test workers run side by side). Each runs the named
 jobs in order on one (data, model) mesh and writes what the test reads
-under `tmp`; a rank that fails fails the launch, with every rank's log."""
+under `tmp`; a rank that fails fails the launch, with every rank's log.
+
+`inverse_cli_rank` is the `fn` that tests/test_torch_inverse_fleet.py hands
+to the launcher the inverse CLI calls (parallel/multihost.py initialize):
+the CLI's own rank function, then what that test reads."""
 
 import json
 import os
@@ -193,6 +197,48 @@ def mesh_errors(spec, mesh, out: Path) -> None:
             said.append(str(e))
     if mesh.rank == 0:
         (out / "mesh_errors.json").write_text(json.dumps(said))
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def inverse_cli_rank(device, args, validate_every: int, val_batches: int, tmp: str,
+                     dtype: str) -> None:
+    """A rank of the inverse CLI's fleet (multihost.initialize's `fn`): the
+    CLI's rank function with the model in `dtype` (the CLI's
+    COMPUTE_DTYPE), run from a working folder of the rank's own
+    (tmp/rank<r>, so that a relative --out_dir shows which ranks write),
+    then what the test reads, in tmp/rank<r>.json: the final accuracy,
+    the largest difference of each trained tensor from rank 0's, and on
+    rank 0 whether the last checkpoint loads equal to the state."""
+    from video_dqn_tpu_torch import train_inverse_model
+    from video_dqn_tpu_torch.core.checkpoint import restore_checkpoint
+    from video_dqn_tpu_torch.parallel.mesh import world
+    from video_dqn_tpu_torch.train.inverse import flax_state_dict
+
+    train_inverse_model.COMPUTE_DTYPE = getattr(torch, dtype)
+    rank = world()[0]
+    folder = Path(tmp) / f"rank{rank}"
+    folder.mkdir()
+    os.chdir(folder)
+    state, accuracy = train_inverse_model._rank_fn(device, args, validate_every, val_batches)
+    diff = 0.0
+    for p in state.model.head_parameters():
+        ref = p.detach().clone()
+        dist.broadcast(ref, src=0)
+        diff = max(diff, float((p.detach() - ref).abs().max()))
+    said = {"accuracy": accuracy, "step": state.step, "diff_to_rank0": diff}
+    if rank == 0:
+        saved = dict(_leaves(restore_checkpoint(args.out_dir, state.step)))
+        live = dict(_leaves(flax_state_dict(state)))
+        said["checkpoint_equal"] = saved.keys() == live.keys() and all(
+            np.array_equal(saved[k], live[k]) for k in live)
+    (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(said))
 
 
 JOBS = {"train_steps": train_steps, "gather_grad": gather_grad, "dataset": dataset,

@@ -13,15 +13,24 @@ raycaster for the parity tests that compare with them.
 and in video_dqn_tpu_torch: the Flax trees come from the JAX package's
 init_qnet, are filled with seeded numpy values (so that the BatchNorm and
 bias mappings are exercised, not just identity stats), and reach the port
-through its bridge. Only tests compose the two packages."""
+through its bridge. Only tests compose the two packages.
+
+`free_passed_tmp_path` is an autouse fixture for the files whose tests
+write checkpoints of a full-width trunk (about 180 MB each): imported into
+such a file, it removes a passed test's tmp_path at teardown. pytest
+otherwise keeps every tmp_path of a run, and of the two runs before it, so
+that a whole run of the suite held over 8 GB of disk at its end. A test
+that failed keeps its folder for inspection."""
 
 import fcntl
 import os
+import shutil
 import subprocess
 import time
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from video_dqn_tpu_torch.models.bridge import qnet_state_dict_from_flax
@@ -29,6 +38,16 @@ from video_dqn_tpu_torch.models.qnet import HabitatDQN, head_hw
 
 torch.set_num_threads(max(1, (os.cpu_count() or 1)
                           // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
+
+@pytest.fixture(autouse=True)
+def free_passed_tmp_path(request):
+    failed_before = request.session.testsfailed
+    yield
+    # Teardown runs after the call's report, so a failure has been counted.
+    path = (request.node.funcargs or {}).get("tmp_path")
+    if path is not None and request.session.testsfailed == failed_before:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def randomize_tree(tree, rng):

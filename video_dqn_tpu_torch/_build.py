@@ -2,7 +2,8 @@
 
 Two shared libraries with plain C interfaces, each built at first use from
 the sources in the package only, into _build/, and loaded with ctypes:
-  * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS, NV12 -> RGB),
+  * the CUDA kernels: every csrc/*.cu (resize+normalize, NMS, NV12 -> RGB
+    at the native size and scaled),
     compiled by nvcc for sm_90a into _build/libvdqn_kernels.so (`build`,
     `load`);
   * the host library: every csrc/host/*.cc (the JPEG decode stage, the
@@ -131,7 +132,8 @@ class _Library:
 
 # Each kernel entry takes one pointer to its argument struct
 # (ops/resize_normalize.py `_IdentityArgs`, `_BandedArgs`;
-# models/detector/boxes.py `_NmsArgs`; ops/nv12.py `_Nv12Args`).
+# models/detector/boxes.py `_NmsArgs`; ops/nv12.py `_Nv12Args`;
+# ops/nv12_scale.py `_ScaleArgs`).
 KERNELS = _Library(
     BUILD_DIR / "libvdqn_kernels.so", CSRC, ("*.cu", "*.cuh"),
     lambda src, obj: [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -139,7 +141,8 @@ KERNELS = _Library(
     {"vdqn_resize_normalize_identity": ([ctypes.c_void_p], ctypes.c_int),
      "vdqn_resize_normalize_banded": ([ctypes.c_void_p], ctypes.c_int),
      "vdqn_nms": ([ctypes.c_void_p], ctypes.c_int),
-     "vdqn_nv12_rgb": ([ctypes.c_void_p], ctypes.c_int)})
+     "vdqn_nv12_rgb": ([ctypes.c_void_p], ctypes.c_int),
+     "vdqn_nv12_scale_rgb": ([ctypes.c_void_p], ctypes.c_int)})
 HOST = _Library(
     BUILD_DIR / "libvdqn_host.so", CSRC / "host", ("*.cc", "*.h"),
     lambda src, obj: [_cxx(), *CXX_FLAGS, "-c", "-o", str(obj), str(src)],

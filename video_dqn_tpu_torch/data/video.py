@@ -19,6 +19,11 @@ in display order with their pts (seconds, after the edit list); a frame is
 kept when t >= next - 1e-9, then next advances in steps of 1 / fps until it
 passes t + 1e-9; next starts at 0; fps 0 keeps every frame.
 
+`decode_frames(path, fps, target)` yields the kept frames as RGB arrays,
+at the native size or resized to `target` (w, h) on the way (swscale's
+bilinear scaler as the JAX package's decoder runs it: ops/nv12_scale.py's
+kernel, one launch a frame).
+
 `write_frames(frames, dest, fps, device)` is everything after the
 decoder, over display-order (pts, frame) pairs whose frames have `width`,
 `height` and `nv12(y, uv)` (the planes copied into the given arrays): the
@@ -45,6 +50,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.nv12 import nv12_to_rgb
+from ..ops.nv12_scale import nv12_scale_rgb, scale_tables
 from .h264 import decoded_frames
 from .jpeg import save_images
 from .mp4 import Mp4Video
@@ -92,15 +98,22 @@ class Nv12Frame:
 
 class _Converter:
     """NV12 -> RGB of kept frames of one size, a batch of `slots` at a
-    time: `stage` copies a frame's planes into its slot of the NV12 batch
-    (pinned on a card), `convert` turns the first n slots into `rgb[:n]`:
-    on a card two copies up, one kernel launch, one copy back into the
-    pinned RGB batch and a synchronize; on the CPU the twin."""
+    time, at the native size (ops/nv12.py) or at `out_size` (w, h)
+    (ops/nv12_scale.py, swscale's scaled path): `stage` copies a frame's
+    planes into its slot of the NV12 batch (pinned on a card), `convert`
+    turns the first n slots into `rgb[:n]`: on a card two copies up, one
+    kernel launch, one copy back into the pinned RGB batch and a
+    synchronize; on the CPU the twin."""
 
-    def __init__(self, device: torch.device, width: int, height: int, slots: int):
+    def __init__(self, device: torch.device, width: int, height: int, slots: int,
+                 out_size: Optional[Tuple[int, int]] = None):
         self.device, self.size = device, (width, height)
+        self.out_size = out_size or self.size
+        self.tables = None if self.out_size == self.size else scale_tables(
+            width, height, *self.out_size)
         pinned = device.type == "cuda"
-        self.rgb = torch.empty((slots, height, width, 3), dtype=torch.uint8, pin_memory=pinned)
+        out_w, out_h = self.out_size
+        self.rgb = torch.empty((slots, out_h, out_w, 3), dtype=torch.uint8, pin_memory=pinned)
         self.y = torch.empty((slots, height, width), dtype=torch.uint8, pin_memory=pinned)
         self.uv = torch.empty((slots, height // 2, width), dtype=torch.uint8, pin_memory=pinned)
         self._y, self._uv = self.y.numpy(), self.uv.numpy()
@@ -111,13 +124,16 @@ class _Converter:
     def stage(self, frame, slot: int) -> None:
         frame.nv12(self._y[slot], self._uv[slot])
 
+    def _rgb(self, y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+        return nv12_to_rgb(y, uv) if self.tables is None else nv12_scale_rgb(y, uv, self.tables)
+
     def convert(self, n: int) -> None:
         if self.device.type == "cpu":
-            self.rgb[:n] = nv12_to_rgb(self.y[:n], self.uv[:n])
+            self.rgb[:n] = self._rgb(self.y[:n], self.uv[:n])
             return
         self.y_dev[:n].copy_(self.y[:n], non_blocking=True)
         self.uv_dev[:n].copy_(self.uv[:n], non_blocking=True)
-        self.rgb[:n].copy_(nv12_to_rgb(self.y_dev[:n], self.uv_dev[:n]), non_blocking=True)
+        self.rgb[:n].copy_(self._rgb(self.y_dev[:n], self.uv_dev[:n]), non_blocking=True)
         torch.cuda.current_stream(self.device).synchronize()
 
 
@@ -171,15 +187,15 @@ def write_frames(frames: Iterable[Tuple[float, object]], dest: str, fps: float =
     return written
 
 
-def decode_frames(path: str, fps: float = 0.5, target=None, device=None) -> Iterator[np.ndarray]:
-    """RGB uint8 (H, W, 3) frames of the mp4 at `path`, sampled at `fps`
+def decode_frames(path: str, fps: float = 0.5, target: Optional[Tuple[int, int]] = None,
+                  device=None) -> Iterator[np.ndarray]:
+    """RGB uint8 (h, w, 3) frames of the mp4 at `path`, sampled at `fps`
     (0: every frame), converted on `device` (None: the card), one frame a
     launch: the generator is lazy, so it hands each frame over as it is
-    decoded."""
-    if target is not None:
-        raise NotImplementedError(
-            "decode_frames(target=...), the resize fused into decoding, is not ported "
-            "(ROADMAP.md queue 1, item 9)")
+    decoded. `target` (w, h) resizes as the JAX package's decoder does
+    (swscale's bilinear scaler, ops/nv12_scale.py); a size that is not
+    positive keeps the native one, and the native size itself converts
+    as with no target (swscale's unscaled path, ops/nv12.py)."""
     dev = resolve_device(device)
     video = Mp4Video(path)
 
@@ -187,8 +203,11 @@ def decode_frames(path: str, fps: float = 0.5, target=None, device=None) -> Iter
         conv = None
         with video:
             for frame in sampled(decoded_frames(video), fps):
-                if conv is None or conv.size != (frame.width, frame.height):
-                    conv = _Converter(dev, frame.width, frame.height, 1)
+                size = (frame.width, frame.height)
+                out = size if target is None else tuple(
+                    t if t > 0 else n for t, n in zip(map(int, target), size))
+                if conv is None or conv.size != size or conv.out_size != out:
+                    conv = _Converter(dev, *size, 1, out)
                 conv.stage(frame, 0)
                 conv.convert(1)
                 yield conv.rgb[0].numpy().copy()

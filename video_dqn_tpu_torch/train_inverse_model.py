@@ -8,6 +8,14 @@ The flags are the JAX CLI's; --gpu is accepted and ignored. Checkpoints
 (`sample<N>.ckpt`, read by either package) and `metrics.jsonl` go to
 --out_dir, or inverse_model_runs/<logdir>. The last line is the JAX CLI's
 `Final val accuracy: ...`, the mean accuracy of 10 validation batches.
+
+As JAX's CLI takes every local device, on more than one card the CLI
+spawns one NCCL rank a card over a localhost store (parallel/multihost.py)
+and trains data-parallel (train/inverse.py run_inverse_train); a device
+named, one card or the CPU runs one rank in this process. Every rank draws
+the same rows from the same seeds; the final validation batches are split
+over the ranks as run_inverse_train's are. Only rank 0 makes --out_dir,
+writes the metrics and the checkpoints, and prints the final accuracy.
 """
 
 from __future__ import annotations
@@ -21,18 +29,15 @@ import torch
 from ._device import resolve_device
 from .core.metrics import MetricsWriter
 from .data.gibson_pairs import GibsonPairBatcher
+from .parallel import multihost
+from .parallel.mesh import make_mesh, shard_batch
 from .train.inverse import make_inverse_eval, run_inverse_train, to_device
 
 COMPUTE_DTYPE = torch.bfloat16  # the JAX CLI's model dtype
 
 
-def main(argv: Optional[List[str]] = None, device=None, validate_every: int = 100,
-         val_batches: int = 25):
-    """Train with the flags in `argv` (sys.argv when None) on `device`
-    (None: the card; raises without CUDA), validating every
-    `validate_every` steps over `val_batches` batches (run_inverse_train's
-    defaults, which the JAX CLI does not expose). Returns (the state, the
-    final validation accuracy)."""
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The JAX CLI's flags (sys.argv when `argv` is None)."""
     parser = argparse.ArgumentParser(description="train inverse-action model (PyTorch port)")
     parser.add_argument("--train_data", default="data/inverse_model/medium_inverse_train_data.npy")
     parser.add_argument("--backbone-weights", default="",
@@ -55,15 +60,38 @@ def main(argv: Optional[List[str]] = None, device=None, validate_every: int = 10
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cache-images", action="store_true",
                         help="keep decoded state images in RAM across epochs")
-    args = parser.parse_args(argv)
-    device = resolve_device(device)
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None, device=None, validate_every: int = 100,
+         val_batches: int = 25):
+    """Train with the flags in `argv` (sys.argv when None) on `device`
+    (None: the card, or every card where there are several; raises
+    without CUDA), validating every `validate_every` steps over
+    `val_batches` batches (run_inverse_train's defaults, which the JAX CLI
+    does not expose). Returns (the state, the final validation accuracy)
+    where this process runs the one rank, None where it spawned its
+    ranks."""
+    args = parse_args(argv)
+    if device is None and torch.cuda.device_count() > 1:
+        return multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, "native",
+                                    torch.cuda.device_count(), _rank_fn,
+                                    (args, validate_every, val_batches))
+    return _rank_fn(resolve_device(device), args, validate_every, val_batches)
+
+
+def _rank_fn(device, args, validate_every: int, val_batches: int):
+    """One rank's run: the batchers, run_inverse_train (the metrics writer
+    on rank 0 only) and the final accuracy over 10 validation batches.
+    Returns (the state, that accuracy)."""
+    primary = multihost.is_primary()
     pair_kwargs = dict(image_root=args.image_root, image_size=args.image_size,
                        seed=args.seed, cache_images=args.cache_images)
     train_b = GibsonPairBatcher(args.train_data, **pair_kwargs)
     val_b = GibsonPairBatcher(args.val_data, **pair_kwargs)
     steps_per_epoch = max(1, len(train_b) // args.batch_size)
     out_dir = args.out_dir or f"inverse_model_runs/{args.logdir}"
-    writer = MetricsWriter(out_dir)
+    writer = MetricsWriter(out_dir) if primary else None
     try:
         state = run_inverse_train(
             train_b, val_b, out_dir=out_dir, writer=writer, batch_size=args.batch_size,
@@ -73,13 +101,19 @@ def main(argv: Optional[List[str]] = None, device=None, validate_every: int = 10
             weight_decay=args.weight_decay, image_size=args.image_size, dtype=COMPUTE_DTYPE,
             seed=args.seed, backbone_weights=args.backbone_weights, device=device)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     eval_fn = make_inverse_eval(COMPUTE_DTYPE)
-    accs = [float(eval_fn(state.model, to_device(
-        val_b.get_batch(batch_size=min(args.batch_size, len(val_b))), device))[1])
-        for _ in range(10)]
+    mesh = make_mesh()
+    accs = []
+    for _ in range(10):
+        batch = shard_batch(mesh, val_b.get_batch(batch_size=min(args.batch_size, len(val_b))))
+        accuracy = eval_fn(state.model, to_device(batch, device))[1].reshape(1)
+        mesh.mean_over_data([accuracy])
+        accs.append(float(accuracy))
     accuracy = float(np.mean(accs))
-    print(f"Final val accuracy: {accuracy:.4f}")
+    if primary:
+        print(f"Final val accuracy: {accuracy:.4f}")
     return state, accuracy
 
 
